@@ -9,8 +9,10 @@ It needs one CUDA card, ``nvcc`` and the repository's sources; without a
 card, or outside a checkout, it exits non-zero and prints no result.
 Phases, each of which fails the run loudly:
 
-1. Build the bucket pack/unpack kernels (K1, K2) from
-   ``src/repro_torch/kernels/bucket_pack/csrc`` with ``nvcc`` for sm_90a.
+1. Build every kernel with ``nvcc`` for sm_90a, one ``nvcc`` per source,
+   all started together: the bucket pack/unpack kernels (K1, K2,
+   ``kernels/bucket_pack/csrc``), RMSNorm (K3, ``kernels/rmsnorm/csrc``)
+   and flash attention (K4, ``kernels/flash_attention/csrc``).
 2. Hold K1 and K2 bit-equal to their plain PyTorch versions at the main
    path's bucket shapes (the plan's largest, median and smallest bucket, a
    mixed-dtype bucket, a 40-member bucket, then every bucket of one step)
@@ -24,6 +26,19 @@ Phases, each of which fails the run loudly:
    3 steps with the kernel launch counts read around them, one profiled
    step for the time breakdown, then 3 ``single`` steps from the same init,
    which must give bit-identical parameters.
+5. The serving kernels K3 and K4 against their plain versions at the
+   serving path's shapes and a few others, each within its stated
+   tolerance, and timed against the plain version, one PyTorch call for
+   the same function, and the card's bound.
+6. Small serving reference: reduced qwen2-1.5b in float32, greedy
+   ``generate`` on the card (kernels) and on the CPU (plain versions) from
+   the same parameters: identical tokens, prefill logits within 1e-4.
+7. The serving path: full-width qwen2-1.5b, 8 requests of 1024 prompt
+   tokens, 32 new tokens greedy; ``generate`` twice (warm-up, counted) with
+   the K3/K4 launch counts read around the counted one, one profiled
+   prefill, prefill against the plain versions on the card,
+   prefill(S) plus one decode step against prefill(S+1), and one profiled
+   decode step.
 
 The last lines are the card (``nvidia-smi``), one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
@@ -31,6 +46,7 @@ each kernel, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -39,17 +55,25 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEQ, BATCH, STEPS = 1024, 2, 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor cores, same sheet
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 1024, 32
 FOUR_RANK_PRIOR = ((4,), ("data",), ("data",))
 KERNELS = {
     "bucket_pack": ("src/repro_torch/kernels/bucket_pack/csrc/bucket_pack.cu",
                     "src/repro/kernels/bucket_pack/kernel.py:46"),
     "bucket_unpack": ("src/repro_torch/kernels/bucket_pack/csrc/bucket_pack.cu",
                       "src/repro/kernels/bucket_pack/kernel.py:80"),
+    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/kernel.py:25"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84"),
 }
 
 
@@ -421,6 +445,354 @@ def phase_main_path(device, plan_expected) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the serving kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+def check_close(name: str, got, want, rtol: float, atol: float) -> float:
+    """Raise unless |got - want| <= atol + rtol |want| everywhere; returns
+    the max abs error."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = max_abs_err(g, w)
+    worst = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+    log(f"  {name}: max abs err {err:.3e}; worst |err| / (atol + rtol|want|)"
+        f" {worst:.3f} (rtol {rtol:g}, atol {atol:g})")
+    if worst > 1.0:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             f"version")
+    return err
+
+
+def randn(shape, dtype, device, seed):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: the work K4 must do."""
+    import torch
+    q = torch.arange(sq)[:, None]
+    k = torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= k <= q
+    if window:
+        mask &= k > q - window
+    return int(mask.sum())
+
+
+def phase_serving_kernels(device) -> dict:
+    """K3 and K4 at every case; returns the numbers of each kernel at the
+    serving path's main shape for the JSON line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ops as rn
+    bf16, f32 = torch.bfloat16, torch.float32
+    eps = 1e-6
+    rows = SERVE_REQUESTS * SERVE_PROMPT
+    out = {}
+
+    log("[serving kernels] K3 rmsnorm against its plain version")
+    main_err = 0.0
+    for i, (shape, dt) in enumerate([((rows, 1536), bf16),
+                                     ((SERVE_REQUESTS, 1536), bf16),
+                                     ((100, 300), f32),
+                                     ((7 * 13, 65), bf16)]):
+        x = randn(shape, dt, device, 10 + i)
+        sc = randn(shape[-1:], dt, device, 20 + i)
+        tol = 2e-2 if dt == bf16 else 1e-5
+        err = check_close(f"{list(shape)} {str(dt)[6:]}",
+                          rn.rmsnorm(x, sc, eps=eps),
+                          RK.rmsnorm_plain(x, sc, eps), tol, 1e-5)
+        if i < 2:
+            main_err = max(main_err, err)
+            nbytes = 2 * x.numel() * x.element_size() + \
+                sc.numel() * sc.element_size()
+            r = dict(ms=cuda_ms(lambda: rn.rmsnorm(x, sc, eps=eps), 20),
+                     plain_ms=cuda_ms(lambda: RK.rmsnorm_plain(x, sc, eps),
+                                      20),
+                     library_ms=cuda_ms(lambda: F.rms_norm(
+                         x, (shape[-1],), sc, eps), 20),
+                     bound_ms=bound_ms(nbytes))
+            log(f"  {list(shape)} timing: " + " ".join(
+                f"{k}={v:.4f}" for k, v in r.items())
+                + "  (library: F.rms_norm)")
+            if i == 0:
+                out["rmsnorm"] = r
+    out["rmsnorm"]["max_abs_err"] = main_err
+    out["rmsnorm"]["per"] = f"one launch at [{rows}, 1536] bf16"
+
+    log("[serving kernels] K4 flash_attention against its plain version")
+    cases = [  # b, s, hq, hkv, d, dtype, causal, window
+        (SERVE_REQUESTS, SERVE_PROMPT, 12, 2, 128, bf16, True, 0),
+        (2, 257, 4, 1, 128, f32, True, 0),
+        (2, 257, 4, 1, 128, bf16, True, 37),
+        (2, 128, 4, 2, 64, f32, False, 0),
+        (1, 64, 2, 2, 96, f32, True, 0),
+        (2, 40, 4, 1, 16, bf16, True, 0),
+    ]
+    for i, (b, sq, hq, hkv, d, dt, causal, window) in enumerate(cases):
+        q = randn((b, sq, hq, d), dt, device, 30 + i)
+        k = randn((b, sq, hkv, d), dt, device, 40 + i)
+        v = randn((b, sq, hkv, d), dt, device, 50 + i)
+        tol = 2e-2 if dt == bf16 else 2e-5
+        name = (f"[{b},{sq},{hq}/{hkv},{d}] {str(dt)[6:]} "
+                f"{'causal' if causal else 'full'}"
+                + (f" window {window}" if window else ""))
+        err = check_close(name, fa.flash_attention(q, k, v, causal=causal,
+                                                   window=window),
+                          FK.attention_plain(q, k, v, causal=causal,
+                                             window=window), tol, tol)
+        if i == 0:
+            flops = 4 * d * b * hq * attention_pairs(sq, sq, causal, window)
+            nbytes = 2 * (q.numel() + k.numel() + v.numel()) * \
+                q.element_size()
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            r = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 5),
+                     plain_ms=cuda_ms(lambda: FK.attention_plain(q, k, v), 5),
+                     library_ms=cuda_ms(
+                         lambda: F.scaled_dot_product_attention(
+                             qt, kt, vt, is_causal=True, enable_gqa=True),
+                         20),
+                     bound_ms=max(flops / BF16_FLOPS_PER_S,
+                                  nbytes / HBM_BYTES_PER_S) * 1e3,
+                     max_abs_err=err)
+            log(f"  prefill shape timing: {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB; " + " ".join(
+                    f"{k}={v:.4f}" for k, v in r.items())
+                + "  (library: F.scaled_dot_product_attention)")
+            r["bound_by"] = "operations" if flops / BF16_FLOPS_PER_S > \
+                nbytes / HBM_BYTES_PER_S else "bytes"
+            r["per"] = (f"one launch at q [{b},{sq},{hq},{d}], k/v "
+                        f"[{b},{sq},{hkv},{d}] bf16 causal")
+            out["flash_attention"] = r
+            del qt, kt, vt
+    bad = torch.zeros((1, 8, 2, 24), device=device)
+    try:
+        fa.flash_attention(bad, bad, bad)
+    except ValueError as e:
+        log(f"  D=24 on the card raises ValueError: {e}")
+    else:
+        raise AssertionError("K4 took an unsupported head dim on the card")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the serving path.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the serving forward through the kernels' plain versions on the
+    card, for the reference comparison only: the port itself has no such
+    path, and its wrappers raise rather than fall back."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ops as rn
+    saved = rn.rmsnorm, fa.flash_attention
+    rn.rmsnorm = lambda x, s, *, eps=1e-6: RK.rmsnorm_plain(x, s, eps)
+    fa.flash_attention = lambda q, k, v, *, causal=True, window=0: \
+        FK.attention_plain(q, k, v, causal=causal, window=window)
+    try:
+        yield
+    finally:
+        rn.rmsnorm, fa.flash_attention = saved
+
+
+def serving_model(reduced: bool, dtype: str | None = None):
+    from repro_torch.models import registry
+    bundle = registry.reduced_arch("qwen2-1.5b") if reduced \
+        else registry.get_arch("qwen2-1.5b")
+    if dtype:
+        bundle = dataclasses.replace(
+            bundle, cfg=dataclasses.replace(bundle.cfg, dtype=dtype))
+    return bundle, bundle.model(dataclasses.replace(bundle.parallel,
+                                                    scan_layers=False))
+
+
+def reset_serving_launches():
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    RK.reset_launches()
+    FK.reset_launches()
+
+
+def serving_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    return {**RK.launches, **FK.launches}
+
+
+def rel_to_max(got, want) -> float:
+    return max_abs_err(got, want) / max(float(want.float().abs().max()),
+                                        1e-6)
+
+
+def phase_serving_reference(device):
+    """Reduced qwen2-1.5b in float32: the card (kernels) and the CPU (plain
+    versions, which tests/test_torch_serve.py holds to the JAX reference)
+    give the same greedy tokens and prefill logits within 1e-4."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils import tree
+    bundle, model = serving_model(reduced=True, dtype="float32")
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree.tree_map(lambda t: t.to(device), params)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, bundle.cfg.vocab_size, (n,), generator=gen,
+                             dtype=torch.int32) for n in (24, 17, 24, 9)]
+    cpu_out = ServeEngine(model, params, max_len=48,
+                          device="cpu").generate(prompts, 12)
+    reset_serving_launches()
+    gpu_out = ServeEngine(model, card, max_len=48,
+                          device=device).generate(prompts, 12)
+    launches = serving_launches()
+    toks = torch.stack([p[:9] for p in prompts])
+    with torch.inference_mode():
+        want, _ = model.prefill(params, {"tokens": toks}, max_len=16)
+        got, _ = model.prefill(card, {"tokens": toks.to(device)},
+                               max_len=16)
+    err = max_abs_err(got.cpu(), want)
+    scale = max(1.0, float(want.abs().max()))
+    log(f"[serve reference] reduced qwen2-1.5b f32, 4 prompts, 12 new tokens"
+        f" greedy: tokens identical {gpu_out == cpu_out}; launches "
+        f"{launches}; prefill logits max abs diff {err:.3e} (tolerance "
+        f"1e-4 x max(1, max|logit|) = {1e-4 * scale:.3e})")
+    layers = bundle.cfg.num_layers
+    if launches != {"rmsnorm": (2 * layers + 1) * 12,
+                    "flash_attention": layers}:
+        raise AssertionError("the reduced engine did not run the kernels")
+    if gpu_out != cpu_out or not err <= 1e-4 * scale:
+        raise AssertionError("the card disagrees with the CPU serving path")
+
+
+def profile_serving(label: str, fn, top: int = 12) -> dict:
+    """``fn()`` once under torch.profiler: device time by kernel and the
+    card's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.device_time_total]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[serve profile] {label} under the profiler: wall {wall_ms:.2f} ms,"
+        f" summed device time {busy:.2f} ms over "
+        f"{sum(r[1] for r in rows)} device events: busy share "
+        f"{busy / wall_ms:.3f}")
+    for ms, n, key in rows[:top]:
+        log(f"[serve profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    for name in ("flash_fwd", "rmsnorm_rows", "nvjet", "gemm",
+                 "elementwise"):
+        hit = [r for r in rows if name in r[2]]
+        log(f"[serve profile]   {name}: {sum(r[0] for r in hit):.3f} ms over "
+            f"{sum(r[1] for r in hit)} launches")
+    return {"wall_ms": wall_ms, "device_ms": busy}
+
+
+def phase_serving_main(device) -> dict:
+    """Returns the K3/K4 launch counts of the counted ``generate``."""
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils import flops, tree
+    bundle, model = serving_model(reduced=False)
+    cfg = bundle.cfg
+    b, s, new = SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW
+    max_len = s + new + 8
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    n_params = flops.param_counts(params)[0]
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}"
+        f", heads {cfg.num_heads}/{cfg.num_kv_heads}x"
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f", {cfg.dtype}, {n_params:,} parameters; {b} requests x {s} prompt tokens, {new} new tokens "
+        f"greedy, max_len {max_len}")
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (s + 1,), generator=gen,
+                             dtype=torch.int32) for _ in range(b)]
+    extra = torch.stack(prompts).to(device)      # the S+1 check's tokens
+    prompts = [p[:s] for p in prompts]
+    engine = ServeEngine(model, params, max_len=max_len, device=device)
+    t0 = time.perf_counter()
+    engine.generate(prompts, new)
+    log(f"[serve] warm-up generate: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_serving_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, new)
+    total_s = time.perf_counter() - t0
+    launches = serving_launches()
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms, decode_ms = engine.step_ms[0], engine.step_ms[1:]
+    shape = ShapeConfig("serve", "prefill", s, b)
+    mf = flops.model_flops(cfg, params, shape, "prefill")["model_flops"]
+    per_layer = 2 * b * max_len * cfg.num_kv_heads * \
+        cfg.resolved_head_dim * 2                # k and v, bf16
+    log(f"[serve] counted generate: {total_s * 1e3:.1f} ms for {b * new} "
+        f"tokens = {b * new / total_s:.1f} tokens/s; prefill "
+        f"{prefill_ms:.2f} ms = {mf / prefill_ms / 1e9:.2f} model TFLOP/s "
+        f"({mf / 1e12:.2f} TFLOP); decode ms per token: median "
+        f"{statistics.median(decode_ms):.3f}, min {min(decode_ms):.3f}, max "
+        f"{max(decode_ms):.3f}; peak memory {peak / 2**30:.2f} GiB; KV cache "
+        f"{per_layer * cfg.num_layers / 1e6:.1f} MB; launches {launches}")
+    want = {"rmsnorm": (2 * cfg.num_layers + 1) * new,
+            "flash_attention": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if any(len(o) != new for o in outs) or not all(
+            0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("generated tokens out of [0, vocab)")
+    log(f"[serve] first tokens: req0 {outs[0][:8]}, req1 {outs[1][:8]}")
+
+    toks = extra[:, :s]
+    profile_serving("one prefill", lambda: model.prefill(
+        params, {"tokens": toks}, max_len=max_len))
+    with torch.inference_mode():
+        got, cache = model.prefill(params, {"tokens": toks}, max_len=max_len)
+        with plain_kernels():
+            want_logits, _ = model.prefill(params, {"tokens": toks},
+                                           max_len=max_len)
+        rel = rel_to_max(got, want_logits)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError("non-finite prefill logits")
+        lg, _ = model.decode_step(params, cache, extra[:, s:], s)
+        longer, _ = model.prefill(params, {"tokens": extra}, max_len=max_len)
+        rel_dec = rel_to_max(lg[:, 0], longer)
+    log(f"[serve] prefill logits {tuple(got.shape)} {got.dtype}: kernels "
+        f"against plain versions on the card, max abs diff / max |logit| = "
+        f"{rel:.3e}; prefill({s}) + one decode step against prefill({s + 1})"
+        f": {rel_dec:.3e} (tolerance 2e-2 each)")
+    if not (rel <= 2e-2 and rel_dec <= 2e-2):
+        raise AssertionError("the serving path disagrees with itself")
+    nxt = torch.argmax(lg[:, 0], dim=-1)[:, None].to(torch.int32)
+    profile_serving("one decode step", lambda: model.decode_step(
+        params, cache, nxt, s + 1))
+    del cache, params, engine
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -452,12 +824,17 @@ def main() -> int:
         f", CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    lib, nvcc_log = K.build()
-    log(f"[build] {lib.name} with nvcc for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    with ThreadPoolExecutor(3) as pool:       # one nvcc per source at once
+        builds = list(pool.map(lambda m: m.build(), (K, RK, FK)))
+    log(f"[build] {', '.join(lib.name for lib, _ in builds)} with nvcc for "
+        f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    for lib, nvcc_log in builds:
+        for line in nvcc_log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[build]   {lib.name.split('_')[0]}: {line.strip()}")
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(
@@ -477,17 +854,27 @@ def main() -> int:
             launches = phase_main_path(device, plan)
         finally:
             dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    serve = phase_serving_kernels(device)
+    torch.cuda.empty_cache()
+    phase_serving_reference(device)
+    torch.cuda.empty_cache()
+    launches.update(phase_serving_main(device))
 
+    for name in ("bucket_pack", "bucket_unpack"):
+        step[name]["per"] = (f"one train step ({plan.num_buckets} "
+                             f"buckets)")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        r = step[name]
+        r = {**step, **serve}[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": r["library_ms"]})
+            "bound_by": r.get("bound_by", "bytes"),
+            "library_ms": r["library_ms"], "per": r["per"]})
     for line in card:
         print(line)
     print(json.dumps({"kernels": kernels}))

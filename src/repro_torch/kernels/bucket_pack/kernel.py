@@ -25,15 +25,13 @@ Each wrapper counts its launches in :data:`launches`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import _build
 
 TILE = 512
 
@@ -114,31 +112,13 @@ def build() -> tuple[Path, str]:
     from the same source exists.  Returns ``(library path, nvcc log)``; the
     log holds ``ptxas -v``'s register and spill report (empty when the
     library was already built)."""
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libbucket_pack_{tag}.so"
-    if out.exists():
-        return out, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the bucket_pack kernels are "
-                           "built from source on the machine with the card")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stderr
+    return _build.build(SOURCE, BUILD_DIR, "bucket_pack")
 
 
 def _lib():
     global _lib_handle
     if _lib_handle is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = _build.load(SOURCE, BUILD_DIR, "bucket_pack")
         for fn in (lib.bucket_pack, lib.bucket_unpack):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]

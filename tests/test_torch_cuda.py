@@ -1,6 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions, and
-the train step going through them.  Every test here needs an NVIDIA GPU
-and skips without one; on a machine with a card run
+the train step and the serving engine going through them.  Every test here
+needs an NVIDIA GPU and skips without one; on a machine with a card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -131,3 +131,119 @@ def test_train_step_launches_once_per_bucket(cuda, tmp_path):
             assert torch.equal(_bits(a), _bits(w))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The serving kernels: K3 (RMSNorm) and K4 (flash attention).
+# ---------------------------------------------------------------------------
+
+def _randn(shape, dtype, device, seed=0):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _close(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape,dtype,scale_dtype,offset", [
+    ((100, 300), F32, F32, 0),
+    ((7 * 13, 65), BF16, BF16, 0),
+    ((64, 1536), BF16, BF16, 0),
+    ((8, 1536), BF16, F32, 0),
+    ((33, 128), F32, BF16, 1),          # rows not 16-byte aligned
+    ((8, 1, 1536), BF16, BF16, -1),     # one row of each request: strided
+], ids=["f32_300", "bf16_65", "bf16_1536", "bf16_x_f32_scale", "misaligned",
+        "strided_rows"])
+def test_rmsnorm_kernel_matches_plain(shape, dtype, scale_dtype, offset,
+                                      cuda):
+    from repro_torch.kernels.rmsnorm import kernel as RK, ops as rn
+    if offset < 0:          # the last position of [8, 5, 1536], as prefill
+        x = _randn((shape[0], 5, shape[2]), dtype, cuda)[:, -1:, :]
+    else:
+        n = shape[0] * shape[1]
+        x = _randn(n + offset, dtype, cuda)[offset:].view(shape)
+    s = _randn(shape[-1:], scale_dtype, cuda, seed=1)
+    before = RK.launches["rmsnorm"]
+    got = rn.rmsnorm(x, s, eps=1e-6)
+    torch.cuda.synchronize()
+    assert RK.launches["rmsnorm"] == before + 1
+    _close(got, RK.rmsnorm_plain(x, s, 1e-6), 1e-5 if dtype == F32 else 2e-2)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,causal,window", [
+    (2, 257, 4, 1, 128, F32, True, 0),
+    (2, 128, 4, 2, 64, BF16, True, 37),
+    (1, 64, 2, 2, 96, F32, False, 0),
+    (1, 100, 8, 8, 32, BF16, True, 0),
+    (2, 40, 4, 2, 16, F32, True, 1),
+], ids=["pad257_f32", "window37_bf16", "full_d96_f32", "mha_d32_bf16",
+        "window1_d16_f32"])
+def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, d, dtype,
+                                              causal, window, cuda):
+    from repro_torch.kernels.flash_attention import kernel as FK, ops as fa
+    q = _randn((b, s, hq, d), dtype, cuda, 0)
+    # k and v as strided views of one [B, S, 2, Hkv, D] tensor
+    kv = _randn((b, s, 2, hkv, d), dtype, cuda, 1)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    before = FK.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.launches["flash_attention"] == before + 1
+    want = FK.attention_plain(q, k, v, causal=causal, window=window)
+    _close(got, want, 2e-5 if dtype == F32 else 2e-2)
+
+
+def test_serving_kernels_raise_rather_than_fall_back(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    q = torch.zeros((1, 8, 4, 24), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)                     # D = 24
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.zeros((1, 8, 3, 16), device=cuda),
+                           torch.zeros((1, 8, 2, 16), device=cuda),
+                           torch.zeros((1, 8, 2, 16), device=cuda))
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(q, q.transpose(1, 3).contiguous().transpose(1, 3),
+                           q)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    x = torch.zeros((4, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        RK.rmsnorm_rows(x, torch.ones(64))
+    with pytest.raises(ValueError, match="unit stride"):
+        RK.rmsnorm_rows(torch.zeros((64, 4), device=cuda).t(),
+                        torch.ones(64, device=cuda))
+
+
+def test_serve_engine_launches_kernels(cuda):
+    """Reduced qwen2-1.5b in float32, greedy: the card (kernels) and the CPU
+    (plain versions) give the same tokens, and the counters read one K3
+    launch per norm and one K4 launch per layer's prefill attention."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils import tree
+    b = registry.reduced_arch("qwen2-1.5b")
+    b = dataclasses.replace(b, cfg=dataclasses.replace(b.cfg,
+                                                       dtype="float32"))
+    model = b.model(dataclasses.replace(b.parallel, scan_layers=False))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [torch.arange(10, dtype=torch.int32),
+               torch.arange(5, dtype=torch.int32)]
+    want = ServeEngine(model, params, max_len=32,
+                       device="cpu").generate(prompts, 6)
+    card_params = tree.tree_map(lambda t: t.to(cuda), params)
+    RK.reset_launches()
+    FK.reset_launches()
+    got = ServeEngine(model, card_params, max_len=32,
+                      device=cuda).generate(prompts, 6)
+    layers = b.cfg.num_layers
+    assert RK.launches["rmsnorm"] == (2 * layers + 1) * 6
+    assert FK.launches["flash_attention"] == layers
+    assert got == want

@@ -38,7 +38,8 @@ def test_step_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.train.step, repro_torch.launch.train, "
-            "repro_torch.bridge; print('ok')")
+            "repro_torch.bridge, repro_torch.serve.engine, "
+            "repro_torch.launch.serve; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=120)
