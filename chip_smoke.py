@@ -29,7 +29,12 @@ Phases, each of which fails the run loudly:
 5. The serving kernels K3 and K4 against their plain versions at the
    serving path's shapes and a few others, each within its stated
    tolerance, and timed against the plain version, one PyTorch call for
-   the same function, and the card's bound.
+   the same function, and the card's bound, with the profiler's device
+   time per launch.  K4 in bfloat16 runs the tensor-core kernel at every
+   head dim (16, 32, 64, 96, 128), with ragged lengths, window 1, no mask,
+   k/v as views of one tensor and Skv != Sq; the profiler must show the
+   prefill shape's launches in ``flash_fwd_tc``.  K3's host time per call
+   is printed part by part.
 6. Small serving reference: reduced qwen2-1.5b in float32, greedy
    ``generate`` on the card (kernels) and on the CPU (plain versions) from
    the same parameters: identical tokens, prefill logits within 1e-4.
@@ -37,8 +42,9 @@ Phases, each of which fails the run loudly:
    tokens, 32 new tokens greedy; ``generate`` twice (warm-up, counted) with
    the K3/K4 launch counts read around the counted one, one profiled
    prefill, prefill against the plain versions on the card,
-   prefill(S) plus one decode step against prefill(S+1), and one profiled
-   decode step.
+   prefill(S) plus one decode step against prefill(S+1), and two profiled
+   decode steps; each profile lists the kernels it traced beside the
+   launch counters.
 
 The last lines are the card (``nvidia-smi``), one JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
@@ -488,6 +494,88 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
+def device_us(fn, reps: int, names) -> dict:
+    """``fn()`` ``reps`` times under torch.profiler: for each kernel name,
+    (device us per launch, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        hit = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and name in e.key]
+        n = sum(e.count for e in hit)
+        out[name] = (sum(e.device_time_total for e in hit) / max(n, 1), n)
+    return out
+
+
+def host_ns(fn, n: int = 2000) -> float:
+    """Host nanoseconds per call of ``fn`` over ``n`` calls."""
+    fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter_ns() - t0) / n
+
+
+def rmsnorm_host_breakdown(device) -> None:
+    """K3's host cost by part, at decode's shape [8, 1, 1536] bf16: what
+    a wrapper that checked every call paid for each part ("was") and
+    what this one pays ("now")."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ops as rn
+    x = randn((SERVE_REQUESTS, 1, 1536), torch.bfloat16, device, 60)
+    sc = randn((1536,), torch.bfloat16, device, 61)
+    x2 = x.reshape(-1, 1536)
+    y = torch.empty_like(x)
+    lib = RK._lib()
+    p = ctypes.c_void_p
+    lib.rmsnorm.argtypes = [p, ctypes.c_int, ctypes.c_longlong, p,
+                            ctypes.c_int, p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_float, p]
+    lib.rmsnorm.restype = ctypes.c_int
+    key = (x.shape, x.stride(), x.dtype, x.device, sc.shape, sc.stride(),
+           sc.dtype, sc.device, 1e-6)
+    fn, args, raw_stream, index = RK._signatures.get(key) or \
+        RK._signature(x, sc, 1e-6, key)
+    stream = raw_stream(index)
+    parts = {
+        "reshape to [R, D] and back (was)": lambda: x.reshape(
+            -1, 1536).reshape(x.shape),
+        "checks, _check (was every call)": lambda: RK._check(x, sc),
+        "signature key + lookup (now)": lambda: RK._signatures.get(
+            (x.shape, x.stride(), x.dtype, x.device, sc.shape, sc.stride(),
+             sc.dtype, sc.device, 1e-6)),
+        "torch.empty(shape, dtype, device) (was)": lambda: torch.empty(
+            x2.shape, dtype=x.dtype, device=x.device),
+        "torch.empty_like (now)": lambda: torch.empty_like(x),
+        "torch.cuda.current_stream().cuda_stream (was)":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream (now)":
+            lambda: raw_stream(index),
+        "ctypes rmsnorm, 10 arguments + launch (was)": lambda: lib.rmsnorm(
+            x2.data_ptr(), 1, x2.stride(0), sc.data_ptr(), 1, y.data_ptr(),
+            x2.shape[0], 1536, 1e-6, stream),
+        "ctypes rmsnorm_packed, 5 arguments + launch (now)": lambda: fn(
+            x.data_ptr(), sc.data_ptr(), y.data_ptr(), args, stream),
+        "whole call, ops.rmsnorm (now)": lambda: rn.rmsnorm(x, sc),
+    }
+    log("[serving kernels] K3 host time per call by part, [8, 1, 1536] bf16 "
+        "(perf_counter_ns over 2000 calls each)")
+    for name, f in parts.items():
+        log(f"  {name}: {host_ns(f) / 1e3:.2f} us")
+    torch.cuda.synchronize()
+
+
 def phase_serving_kernels(device) -> dict:
     """K3 and K4 at every case; returns the numbers of each kernel at the
     serving path's main shape for the JSON line."""
@@ -506,6 +594,7 @@ def phase_serving_kernels(device) -> dict:
     main_err = 0.0
     for i, (shape, dt) in enumerate([((rows, 1536), bf16),
                                      ((SERVE_REQUESTS, 1536), bf16),
+                                     ((SERVE_REQUESTS, 1, 1536), bf16),
                                      ((100, 300), f32),
                                      ((7 * 13, 65), bf16)]):
         x = randn(shape, dt, device, 10 + i)
@@ -524,41 +613,65 @@ def phase_serving_kernels(device) -> dict:
                      library_ms=cuda_ms(lambda: F.rms_norm(
                          x, (shape[-1],), sc, eps), 20),
                      bound_ms=bound_ms(nbytes))
+            dev_us, n = device_us(lambda: rn.rmsnorm(x, sc, eps=eps), 20,
+                                  ["rmsnorm_rows"])["rmsnorm_rows"]
+            r["device_ms"] = dev_us / 1e3
             log(f"  {list(shape)} timing: " + " ".join(
                 f"{k}={v:.4f}" for k, v in r.items())
-                + "  (library: F.rms_norm)")
+                + f"  (library: F.rms_norm; device_ms from the profiler, "
+                f"{n} of 20 launches traced)")
+            if r["ms"] > r["library_ms"]:
+                log(f"  {list(shape)}: K3 misses its target, ms "
+                    f"{r['ms']:.4f} > F.rms_norm {r['library_ms']:.4f}")
             if i == 0:
                 out["rmsnorm"] = r
     out["rmsnorm"]["max_abs_err"] = main_err
     out["rmsnorm"]["per"] = f"one launch at [{rows}, 1536] bf16"
+    rmsnorm_host_breakdown(device)
 
-    log("[serving kernels] K4 flash_attention against its plain version")
-    cases = [  # b, s, hq, hkv, d, dtype, causal, window
-        (SERVE_REQUESTS, SERVE_PROMPT, 12, 2, 128, bf16, True, 0),
-        (2, 257, 4, 1, 128, f32, True, 0),
-        (2, 257, 4, 1, 128, bf16, True, 37),
-        (2, 128, 4, 2, 64, f32, False, 0),
-        (1, 64, 2, 2, 96, f32, True, 0),
-        (2, 40, 4, 1, 16, bf16, True, 0),
+    log("[serving kernels] K4 flash_attention against its plain version "
+        "(bf16: flash_fwd_tc on the tensor cores; f32: SIMT flash_fwd)")
+    cases = [  # b, sq, skv, hq, hkv, d, dtype, causal, window, kv view
+        (SERVE_REQUESTS, SERVE_PROMPT, SERVE_PROMPT, 12, 2, 128, bf16, True,
+         0, False),
+        (2, 257, 257, 4, 1, 128, f32, True, 0, False),
+        (2, 128, 128, 4, 2, 64, f32, False, 0, False),
+        (1, 64, 64, 2, 2, 96, f32, True, 0, False),
+        (2, 130, 130, 4, 2, 16, bf16, True, 0, True),
+        (2, 128, 128, 4, 2, 32, bf16, False, 0, True),
+        (2, 128, 128, 4, 2, 64, bf16, True, 0, True),
+        (2, 200, 200, 4, 2, 96, bf16, True, 0, True),
+        (2, 257, 257, 4, 1, 128, bf16, True, 37, False),
+        (2, 100, 100, 4, 2, 128, bf16, True, 0, True),
+        (2, 40, 40, 4, 1, 16, bf16, True, 1, False),
+        (2, 257, 257, 4, 1, 128, bf16, True, 1, True),
+        (2, 100, 300, 4, 2, 128, bf16, False, 0, True),
+        (2, 300, 100, 4, 2, 64, bf16, True, 0, True),
     ]
-    for i, (b, sq, hq, hkv, d, dt, causal, window) in enumerate(cases):
+    for i, (b, sq, skv, hq, hkv, d, dt, causal, window, kv_view) in \
+            enumerate(cases):
         q = randn((b, sq, hq, d), dt, device, 30 + i)
-        k = randn((b, sq, hkv, d), dt, device, 40 + i)
-        v = randn((b, sq, hkv, d), dt, device, 50 + i)
+        if kv_view:                     # k and v as views of one tensor
+            kv = randn((b, skv, 2, hkv, d), dt, device, 40 + i)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        else:
+            k = randn((b, skv, hkv, d), dt, device, 40 + i)
+            v = randn((b, skv, hkv, d), dt, device, 50 + i)
         tol = 2e-2 if dt == bf16 else 2e-5
-        name = (f"[{b},{sq},{hq}/{hkv},{d}] {str(dt)[6:]} "
+        name = (f"[{b},{sq}/{skv},{hq}/{hkv},{d}] {str(dt)[6:]} "
                 f"{'causal' if causal else 'full'}"
-                + (f" window {window}" if window else ""))
+                + (f" window {window}" if window else "")
+                + (" kv views" if kv_view else ""))
         err = check_close(name, fa.flash_attention(q, k, v, causal=causal,
                                                    window=window),
                           FK.attention_plain(q, k, v, causal=causal,
                                              window=window), tol, tol)
         if i == 0:
-            flops = 4 * d * b * hq * attention_pairs(sq, sq, causal, window)
+            flops = 4 * d * b * hq * attention_pairs(sq, skv, causal, window)
             nbytes = 2 * (q.numel() + k.numel() + v.numel()) * \
                 q.element_size()
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            r = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 5),
+            r = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 20),
                      plain_ms=cuda_ms(lambda: FK.attention_plain(q, k, v), 5),
                      library_ms=cuda_ms(
                          lambda: F.scaled_dot_product_attention(
@@ -567,14 +680,31 @@ def phase_serving_kernels(device) -> dict:
                      bound_ms=max(flops / BF16_FLOPS_PER_S,
                                   nbytes / HBM_BYTES_PER_S) * 1e3,
                      max_abs_err=err)
+            before = FK.launches["flash_attention"]
+            prof = device_us(lambda: fa.flash_attention(q, k, v), 10,
+                             ["flash_fwd_tc<", "flash_fwd<"])
+            counted = FK.launches["flash_attention"] - before - 1
+            r["device_ms"] = prof["flash_fwd_tc<"][0] / 1e3
             log(f"  prefill shape timing: {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB; " + " ".join(
                     f"{k}={v:.4f}" for k, v in r.items())
-                + "  (library: F.scaled_dot_product_attention)")
+                + f"; {flops / r['ms'] / 1e9:.1f} TFLOP/s (device "
+                f"{flops / r['device_ms'] / 1e9:.1f}), SDPA "
+                f"{flops / r['library_ms'] / 1e9:.1f}  (library: "
+                f"F.scaled_dot_product_attention)")
+            log(f"  profiler over {counted} launches (the wrapper's "
+                f"count): traced flash_fwd_tc {prof['flash_fwd_tc<'][1]}, "
+                f"{prof['flash_fwd_tc<'][0]:.1f} us each; traced SIMT "
+                f"flash_fwd {prof['flash_fwd<'][1]}")
+            if not prof["flash_fwd_tc<"][1] or prof["flash_fwd<"][1]:
+                raise AssertionError("bf16 K4 did not run flash_fwd_tc")
+            if r["ms"] > 2 * r["library_ms"]:
+                log(f"  K4 misses its target: ms {r['ms']:.4f} > 2 x SDPA "
+                    f"{2 * r['library_ms']:.4f}")
             r["bound_by"] = "operations" if flops / BF16_FLOPS_PER_S > \
                 nbytes / HBM_BYTES_PER_S else "bytes"
             r["per"] = (f"one launch at q [{b},{sq},{hq},{d}], k/v "
-                        f"[{b},{sq},{hkv},{d}] bf16 causal")
+                        f"[{b},{skv},{hkv},{d}] bf16 causal")
             out["flash_attention"] = r
             del qt, kt, vt
     bad = torch.zeros((1, 8, 2, 24), device=device)
@@ -679,16 +809,19 @@ def phase_serving_reference(device):
 
 def profile_serving(label: str, fn, top: int = 12) -> dict:
     """``fn()`` once under torch.profiler: device time by kernel and the
-    card's busy share of the wall time."""
+    card's busy share of the wall time, with the K3/K4 launch counters read
+    around the same call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    reset_serving_launches()
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = serving_launches()
     rows = [(e.device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and e.device_time_total]
@@ -700,12 +833,22 @@ def profile_serving(label: str, fn, top: int = 12) -> dict:
         f"{busy / wall_ms:.3f}")
     for ms, n, key in rows[:top]:
         log(f"[serve profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
-    for name in ("flash_fwd", "rmsnorm_rows", "nvjet", "gemm",
-                 "elementwise"):
+    for name in ("flash_fwd_tc<", "flash_fwd<", "rmsnorm_rows", "nvjet",
+                 "gemm", "elementwise"):
         hit = [r for r in rows if name in r[2]]
         log(f"[serve profile]   {name}: {sum(r[0] for r in hit):.3f} ms over "
             f"{sum(r[1] for r in hit)} launches")
-    return {"wall_ms": wall_ms, "device_ms": busy}
+    # the kernels as the trace lists them one by one, against the counters
+    kernels = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    traced = {"rmsnorm": sum("rmsnorm_rows" in e.name for e in kernels),
+              "flash_attention": sum("flash_fwd" in e.name for e in kernels)}
+    log(f"[serve profile]   launch counters {counted}; kernels in the trace "
+        f"{traced}; first device events: "
+        + ", ".join(e.name[:40] for e in kernels[:6]))
+    return {"wall_ms": wall_ms, "device_ms": busy, "counted": counted,
+            "traced": traced}
 
 
 def phase_serving_main(device) -> dict:
@@ -787,8 +930,11 @@ def phase_serving_main(device) -> dict:
     if not (rel <= 2e-2 and rel_dec <= 2e-2):
         raise AssertionError("the serving path disagrees with itself")
     nxt = torch.argmax(lg[:, 0], dim=-1)[:, None].to(torch.int32)
-    profile_serving("one decode step", lambda: model.decode_step(
-        params, cache, nxt, s + 1))
+    # twice: a kernel missing from the trace in one profile and not the
+    # other is the profiler's, not the path's
+    for pos in (s + 1, s + 2):
+        profile_serving(f"one decode step at {pos}",
+                        lambda: model.decode_step(params, cache, nxt, pos))
     del cache, params, engine
     return launches
 
@@ -832,8 +978,9 @@ def main() -> int:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
     for lib, nvcc_log in builds:
         for line in nvcc_log.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "Performance Loss",
+                                       "setmaxnreg")):
                 log(f"[build]   {lib.name.split('_')[0]}: {line.strip()}")
 
     with tempfile.TemporaryDirectory() as tmp:

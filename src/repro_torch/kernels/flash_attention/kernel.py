@@ -10,9 +10,14 @@ Replaces the Pallas kernel of ``repro/kernels/flash_attention/kernel.py``:
 CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built with ``nvcc``
 on first use into ``build/`` beside this file and loaded with ``ctypes``.
 Bound by operations: 4·D flops for each unmasked (query, key) pair.  The
-kernel reads q, k and v in their ``[B, S, H, D]`` layout through strides
-and writes o as ``[B, Sq, Hq, D]``; head dims 16, 32, 64, 96 and 128.  The
-source explains the design.
+kernels read q, k and v in their ``[B, S, H, D]`` layout through strides
+and write o as ``[B, Sq, Hq, D]``; head dims 16, 32, 64, 96 and 128.  The
+dtype picks the kernel: bfloat16 runs ``flash_fwd_tc`` on the tensor cores
+(wgmma, with K/V tiles loaded by TMA), which rounds p to bfloat16 for the
+p·v product; float32 runs the SIMT ``flash_fwd``, which keeps float32's
+tolerance.  TMA needs a 16-byte aligned base and 16-byte strides, so the
+wrapper refuses bfloat16 views without them.  The source explains the
+design.
 
 The wrapper takes the plain version (:func:`attention_plain`, the port's
 copy of ``repro/kernels/flash_attention/ref.py``) only for tensors on the
@@ -75,6 +80,15 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can map the bfloat16 ``[B, S, H, D]`` view ``t``: a
+    16-byte aligned base, and strides of 16-byte multiples in every dim
+    that is ever stepped (extent > 1)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st * 2 % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
+
+
 def build() -> tuple[Path, str]:
     """Compile ``csrc/flash_attention.cu`` unless built; ``(library, nvcc
     log)``."""
@@ -124,6 +138,11 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous "
                          "(unit stride)")
+    if q.dtype == torch.bfloat16 and not all(map(_tma_ok, (q, k, v))):
+        raise ValueError("flash_attention: bfloat16 q, k and v need a "
+                         "16-byte aligned base and strides that are "
+                         "multiples of 16 bytes (the kernel loads them "
+                         "with TMA)")
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o)
                                          for s in t.stride()[:3]))

@@ -156,6 +156,20 @@ extern "C" int rmsnorm(const void* x, int x_dt, long long x_stride,
   return -1;
 }
 
+// The same launch with the arguments that a call signature fixes packed in
+// one struct, so that the wrapper passes five arguments instead of ten.
+struct RmsnormArgs {
+  long long x_stride, rows;
+  int x_dt, scale_dt, d;
+  float eps;
+};
+
+extern "C" int rmsnorm_packed(const void* x, const void* scale, void* y,
+                              const RmsnormArgs* a, void* stream) {
+  return rmsnorm(x, a->x_dt, a->x_stride, scale, a->scale_dt, y, a->rows,
+                 a->d, a->eps, stream);
+}
+
 extern "C" const char* kernel_error_string(int code) {
   if (code == -1) return "unknown dtype code";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -172,20 +172,36 @@ def test_rmsnorm_kernel_matches_plain(shape, dtype, scale_dtype, offset,
     _close(got, RK.rmsnorm_plain(x, s, 1e-6), 1e-5 if dtype == F32 else 2e-2)
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,causal,window", [
-    (2, 257, 4, 1, 128, F32, True, 0),
-    (2, 128, 4, 2, 64, BF16, True, 37),
-    (1, 64, 2, 2, 96, F32, False, 0),
-    (1, 100, 8, 8, 32, BF16, True, 0),
-    (2, 40, 4, 2, 16, F32, True, 1),
+@pytest.mark.parametrize("b,s,skv,hq,hkv,d,dtype,causal,window", [
+    (2, 257, 257, 4, 1, 128, F32, True, 0),
+    (2, 128, 128, 4, 2, 64, BF16, True, 37),
+    (1, 64, 64, 2, 2, 96, F32, False, 0),
+    (1, 100, 100, 8, 8, 32, BF16, True, 0),
+    (2, 40, 40, 4, 2, 16, F32, True, 1),
+    # bfloat16 runs the tensor-core kernel: every head dim, ragged lengths,
+    # window 1 (fully masked tiles), no mask, and Skv != Sq
+    (2, 130, 130, 4, 2, 16, BF16, True, 0),
+    (2, 128, 128, 4, 2, 32, BF16, False, 0),
+    (2, 128, 128, 4, 2, 64, BF16, True, 0),
+    (2, 200, 200, 4, 2, 96, BF16, True, 0),
+    (2, 257, 257, 4, 1, 128, BF16, True, 0),
+    (2, 100, 100, 4, 2, 128, BF16, True, 0),
+    (2, 40, 40, 4, 2, 16, BF16, True, 1),
+    (2, 257, 257, 4, 1, 128, BF16, True, 1),
+    (2, 128, 128, 4, 2, 128, BF16, False, 0),
+    (2, 100, 300, 4, 2, 128, BF16, False, 0),
+    (2, 300, 100, 4, 2, 64, BF16, True, 0),
 ], ids=["pad257_f32", "window37_bf16", "full_d96_f32", "mha_d32_bf16",
-        "window1_d16_f32"])
-def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, d, dtype,
+        "window1_d16_f32", "d16_bf16", "full_d32_bf16", "d64_bf16",
+        "d96_bf16", "pad257_d128_bf16", "ragged100_bf16", "window1_d16_bf16",
+        "window1_d128_bf16", "full_d128_bf16", "skv_longer_bf16",
+        "skv_shorter_bf16"])
+def test_flash_attention_kernel_matches_plain(b, s, skv, hq, hkv, d, dtype,
                                               causal, window, cuda):
     from repro_torch.kernels.flash_attention import kernel as FK, ops as fa
     q = _randn((b, s, hq, d), dtype, cuda, 0)
-    # k and v as strided views of one [B, S, 2, Hkv, D] tensor
-    kv = _randn((b, s, 2, hkv, d), dtype, cuda, 1)
+    # k and v as strided views of one [B, Skv, 2, Hkv, D] tensor
+    kv = _randn((b, skv, 2, hkv, d), dtype, cuda, 1)
     k, v = kv[:, :, 0], kv[:, :, 1]
     before = FK.launches["flash_attention"]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -193,6 +209,29 @@ def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, d, dtype,
     assert FK.launches["flash_attention"] == before + 1
     want = FK.attention_plain(q, k, v, causal=causal, window=window)
     _close(got, want, 2e-5 if dtype == F32 else 2e-2)
+
+
+def test_rmsnorm_signature_cache_still_raises(cuda):
+    """A repeated call signature skips K3's checks; a new one, even of the
+    same shape, runs them all and raises as before."""
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    x = _randn((16, 256), BF16, cuda)
+    s = _randn((256,), BF16, cuda, seed=1)
+    before = RK.launches["rmsnorm"]
+    first = RK.rmsnorm_rows(x, s)
+    second = RK.rmsnorm_rows(x, s)
+    torch.cuda.synchronize()
+    assert RK.launches["rmsnorm"] == before + 2
+    assert torch.equal(first, second)
+    _close(first, RK.rmsnorm_plain(x, s), 2e-2)
+    bad = torch.zeros((256, 16), dtype=BF16, device=cuda).t()
+    with pytest.raises(ValueError, match="unit stride"):
+        RK.rmsnorm_rows(bad, s)
+    with pytest.raises(TypeError):
+        RK.rmsnorm_rows(x.half(), s)
+    with pytest.raises(ValueError, match="one stride apart"):
+        RK.rmsnorm_rows(_randn((3, 2, 256), BF16, cuda).transpose(0, 1), s)
+    assert RK.launches["rmsnorm"] == before + 2
 
 
 def test_serving_kernels_raise_rather_than_fall_back(cuda):
@@ -213,6 +252,10 @@ def test_serving_kernels_raise_rather_than_fall_back(cuda):
         fa.flash_attention(q, q.cpu(), q)
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
+    qb = torch.zeros(1 * 8 * 2 * 32 + 1, dtype=BF16, device=cuda)[1:]
+    qb = qb.view(1, 8, 2, 32)                   # not 16-byte aligned
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(qb, qb, qb)
     x = torch.zeros((4, 64), device=cuda)
     with pytest.raises(RuntimeError, match="CUDA device"):
         RK.rmsnorm_rows(x, torch.ones(64))

@@ -10,6 +10,12 @@ the plain PyTorch versions for tensors on the CPU:
   (257 rows against blocks of 64) and D = 96; float32 to 2e-5, bfloat16
   to 2e-2.
 
+Two things the card path adds are pinned here without a card: K3's
+``_check``, which refuses each layout, dtype and device the kernel does
+not take (the card runs it once per call signature), and K4's one
+numerical departure, p rounded to bfloat16 before p·v, done in plain
+PyTorch and held to the Pallas kernel within the bf16 tolerance.
+
 The CUDA kernels themselves are held to the plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -160,3 +166,108 @@ def test_flash_attention_cpu_takes_any_head_dim():
     assert out.shape == q.shape
     assert FK.launches["flash_attention"] == before
     assert 24 not in FK.HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# K3's checks, which the card path runs once per call signature
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("make,exc,match", [
+    (lambda: (torch.zeros(4, 8), torch.ones(8)), RuntimeError,
+     "CUDA device"),
+    (lambda: (torch.zeros(()), torch.ones(1)), ValueError, "scalar"),
+    (lambda: (torch.zeros(4, 8, dtype=torch.float16), torch.ones(8)),
+     TypeError, "float32 or bfloat16"),
+    (lambda: (torch.zeros(4, 8), torch.ones(8, dtype=torch.float64)),
+     TypeError, "float32 or bfloat16"),
+    (lambda: (torch.zeros(8, 4).t(), torch.ones(8)), ValueError,
+     "unit stride"),
+    (lambda: (torch.zeros(4, 8), torch.ones(16)[::2]), ValueError,
+     "unit stride"),
+    (lambda: (torch.zeros(3, 2, 8).transpose(0, 1), torch.ones(8)),
+     ValueError, "one stride apart"),
+    (lambda: (torch.zeros(4, 8), torch.ones(7)), ValueError,
+     "scale must be"),
+], ids=["device", "rank", "dtype", "scale_dtype", "stride", "scale_stride",
+        "row_stride", "scale_shape"])
+def test_rmsnorm_check_refuses(make, exc, match):
+    """Every refusal of K3's card path, on CPU tensors: ``_check`` tests
+    the device last, so each other refusal shows here."""
+    x, scale = make()
+    with pytest.raises(exc, match=match):
+        RK._check(x, scale)
+
+
+def test_rmsnorm_row_stride_of_views():
+    """The row stride K3 reads ``x [..., D]`` with: contiguous rows, the
+    last position of each request (prefill's final norm), size-1 dims of
+    any stride, and leading dims that no single stride describes."""
+    assert RK._row_stride(torch.zeros(4, 8)) == 8
+    assert RK._row_stride(torch.zeros(8, 5, 8)[:, -1:]) == 40
+    assert RK._row_stride(torch.zeros(2, 1, 8)) == 8
+    assert RK._row_stride(torch.zeros(1, 8)) == 8
+    assert RK._row_stride(torch.zeros(3, 2, 8).transpose(0, 1)) is None
+    assert RK._row_stride(torch.zeros(6, 8)[::2]) == 16
+
+
+# ---------------------------------------------------------------------------
+# K4's one numerical departure: p rounded to bfloat16 before p·v
+# ---------------------------------------------------------------------------
+
+def _attention_p_bf16(q, k, v, *, causal, window, block_k=128):
+    """Blockwise online softmax over tiles of ``block_k`` keys, as the
+    card's bfloat16 K4 computes it: float32 scores of the bf16 inputs,
+    float32 m, l and acc, l summed from the float32 p, and p rounded to
+    bfloat16 for the p·v product."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                        # [b, hq, sq, d]
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
+    m = torch.full((b, hq, sq, 1), FK.NEG_INF)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    q_pos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block_k):
+        k_pos = torch.arange(k0, min(k0 + block_k, skv))[None, :]
+        mask = torch.ones((sq, k_pos.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window:
+            mask &= k_pos > q_pos - window
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) / d ** 0.5
+        s = torch.where(mask, s, FK.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new) * mask
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ \
+            vf[:, :, k0:k0 + block_k]
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window", [
+    (2, 128, 4, 2, 64, True, 0),
+    (2, 257, 4, 1, 128, True, 37),
+    (1, 100, 8, 1, 32, False, 0),
+], ids=["causal_gqa2", "window37_gqa4", "full_gqa8"])
+def test_flash_attention_p_in_bf16_within_tolerance(b, s, hq, hkv, d, causal,
+                                                    window):
+    """The card's bf16 K4 rounds p to bfloat16 for p·v, where the Pallas
+    kernel multiplies float32 p by float32 v.  That rounding, done here in
+    plain PyTorch, stays within the bf16 tolerance (2e-2) of the Pallas
+    kernel in interpret mode and of the port's plain version."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (q, k, v))
+    got = _attention_p_bf16(tq, tk, tv, causal=causal, window=window)
+    kernel = fa_ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    block_q=64, block_k=64, interpret=True)
+    plain = FK.attention_plain(tq, tk, tv, causal=causal, window=window)
+    for want in (_f32(kernel), _f32(plain)):
+        np.testing.assert_allclose(_f32(got), want, rtol=2e-2, atol=2e-2)
+    # the rounding is a real departure: some output moves by a bf16 step
+    assert np.abs(_f32(got) - _f32(plain)).max() > 0
