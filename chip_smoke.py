@@ -17,7 +17,11 @@ Phases, each of which fails the run loudly:
    path's bucket shapes (the plan's largest, median and smallest bucket, a
    mixed-dtype bucket, a 40-member bucket, then every bucket of one step)
    and time each against its plain version, a one-call PyTorch yardstick
-   and its bandwidth bound.
+   and its bandwidth bound.  K1 also meets the edge cases of its chunk
+   list (a zero-size member, a member 2 bytes off 16, mixed f32/bf16 into
+   either buffer dtype, 1-element members, a member larger than a chunk),
+   and is timed over a ZeRO-1 step's two passes (gradients and
+   parameters: 284 launches) as well as ZeRO-0's one (142).
 3. Small reference: reduced qwen2-1.5b in float32, 3 SGD steps on the card
    and on the CPU from the same parameters (the CPU path is the one the
    tests hold to the JAX reference).
@@ -26,6 +30,13 @@ Phases, each of which fails the run loudly:
    3 steps with the kernel launch counts read around them, one profiled
    step for the time breakdown, then 3 ``single`` steps from the same init,
    which must give bit-identical parameters.
+4b. ZeRO-1, qwen2's own setting, at phase 4's shape and plan: 3 steps with
+   the launch counts read around them (K1 twice per bucket, gradients and
+   parameters; K2 once, the gathered parameters), one profiled step, then
+   ``mgwfbp`` and ``single`` from the same init without clipping, which
+   must give bit-identical parameters.  With clipping on they need not:
+   the norm is summed over the plan's buckets, so its rounding, and with
+   it the clip scale, depends on the plan.
 5. The serving kernels K3 and K4 against their plain versions at the
    serving path's shapes and a few others, each within its stated
    tolerance, and timed against the plain version, one PyTorch call for
@@ -123,7 +134,8 @@ def max_abs_err(a, b) -> float:
 # Configuration of the main path.
 # ---------------------------------------------------------------------------
 
-def main_path_config(reduced: bool = False, dtype: str | None = None):
+def main_path_config(reduced: bool = False, dtype: str | None = None,
+                     zero: int = 0, grad_clip: float | None = None):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import registry
     bundle = registry.reduced_arch("qwen2-1.5b") if reduced \
@@ -134,11 +146,13 @@ def main_path_config(reduced: bool = False, dtype: str | None = None):
     shape = ShapeConfig("smoke", "train", 32 if reduced else SEQ,
                         4 if reduced else BATCH)
     par = dataclasses.replace(
-        bundle.parallel, dp_axes=("data",), zero=0, scan_layers=False,
+        bundle.parallel, dp_axes=("data",), zero=zero, scan_layers=False,
         pack_kernel=True, comm_strategy="mgwfbp",
         attn_chunk=min(bundle.parallel.attn_chunk, shape.seq_len))
     run = dataclasses.replace(bundle.run_config("train_4k", par),
                               model=bundle.cfg, shape=shape)
+    if grad_clip is not None:
+        run = dataclasses.replace(run, grad_clip=grad_clip)
     return bundle, run, bundle.model(par)
 
 
@@ -214,6 +228,51 @@ def check_bucket(name: str, members, reps: int = 10) -> dict:
     return r
 
 
+def k1_edge_cases(device) -> None:
+    """K1 over the edge cases of its chunk list, into either buffer dtype,
+    bit-equal to pad-flat-cat."""
+    import torch
+    from repro_torch.kernels.bucket_pack import kernel as K
+    gen = torch.Generator(device=device).manual_seed(2)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def member(shape, dtype, off=False):
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        if off:            # a view one element into its storage
+            host = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+            host[1:].copy_(x.reshape(-1))
+            x = host[1:].view(shape)
+        return x
+
+    cases = {
+        "zero-size members": [member((0,), bf), member((33,), bf),
+                              member((0,), bf), member((1024,), bf)],
+        "a member 2 bytes off 16": [member((1000,), bf),
+                                    member((4, 300), bf, off=True),
+                                    member((17,), bf)],
+        "mixed f32/bf16": [member((33,), bf), member((70,), f32),
+                           member((600,), bf), member((4, 128), f32),
+                           member((4096,), f32)],
+        "1-element members": [member((1,), dt) for dt in (bf, f32) * 3],
+        "members larger than a chunk": [member((3, 20000), bf),
+                                        member((70000,), f32),
+                                        member((5,), bf)],
+    }
+    for name, members in cases.items():
+        table = K.MemberTable(members)
+        for dtype in (f32, bf):
+            buf = K.pack(table, dtype)
+            want = K.pack_plain(members, dtype)
+            if not bit_equal(buf, want):
+                raise AssertionError(f"K1 differs from pad-flat-cat on "
+                                     f"{name} into {dtype} (max abs err "
+                                     f"{max_abs_err(buf, want)})")
+        lists = {str(dt).removeprefix("torch."): [len(x) for x in e[-1]]
+                 for dt, e in table.pack_args.items()}
+        log(f"  K1 edge case, {name}: bit-equal into float32 and bfloat16 "
+            f"buffers; bulk/register chunks {lists}")
+
+
 def phase_kernels(device, plan, shapes) -> dict:
     """Every check of phase 2; returns the per-step numbers of each kernel
     for the JSON line."""
@@ -236,6 +295,7 @@ def phase_kernels(device, plan, shapes) -> dict:
     mixed = [m.float() if j % 2 else m for j, m in enumerate(small)]
     check_bucket("mixed f32/bf16 bucket", mixed)
     check_bucket("40-member bucket", grads[:40])
+    k1_edge_cases(device)
 
     # one step's worth: every bucket of the plan, as the train step runs them
     tables = [K.MemberTable(b) for b in buckets]
@@ -283,10 +343,43 @@ def phase_kernels(device, plan, shapes) -> dict:
                                   for b in buckets)),
             max_abs_err=err),
     }
+    # the host's share of a launch: calls on the smallest bucket, whose
+    # device time is shorter than the host's work
+    k = by_size[0]
+    host = {"k1_us": host_ns(lambda: K.pack(tables[k])) / 1e3,
+            "cat_us": host_ns(lambda: torch.cat(flats[k])) / 1e3}
+    torch.cuda.synchronize()
+    step["bucket_pack"]["host_us_per_call"] = host["k1_us"]
+    log(f"[kernels] host time per call, smallest bucket ({len(buckets[k])} "
+        f"members): K1 {host['k1_us']:.2f} us, torch.cat "
+        f"{host['cat_us']:.2f} us")
     for name, r in step.items():
         log(f"[kernels] one step, {name}: "
             + " ".join(f"{k}={v:.4f}" for k, v in r.items())
             + f"  (library: {'torch.cat' if name == 'bucket_pack' else 'torch._foreach_copy_'})")
+
+    # a ZeRO-1 step packs every bucket twice: the gradients, then the
+    # parameters (same shapes and dtype)
+    params = [torch.randn(s, dtype=torch.bfloat16, device=device,
+                          generator=gen) for s in shapes]
+    pbuckets = [[params[i] for i in b] for b in plan.buckets]
+    ptables = [K.MemberTable(b) for b in pbuckets]
+    for b, t in zip(pbuckets, ptables):
+        if not bit_equal(K.pack(t), K.pack_plain(b)):
+            raise AssertionError("K1 differs from pad-flat-cat on the "
+                                 "parameters' buckets")
+    pflats = [[m.reshape(-1) for m in b] for b in pbuckets]
+    zero1 = dict(
+        launches=2 * len(tables),
+        ms=cuda_ms(lambda: ([K.pack(t) for t in tables],
+                            [K.pack(t) for t in ptables]), 5),
+        library_ms=cuda_ms(lambda: ([torch.cat(f) for f in flats],
+                                    [torch.cat(f) for f in pflats]), 5),
+        bound_ms=2 * step["bucket_pack"]["bound_ms"])
+    step["bucket_pack"]["zero1_step"] = zero1
+    log("[kernels] one ZeRO-1 step, bucket_pack (gradients and parameters): "
+        + " ".join(f"{k}={v:.4f}" for k, v in zero1.items())
+        + "  (library: torch.cat)")
     return step
 
 
@@ -295,7 +388,8 @@ def phase_kernels(device, plan, shapes) -> dict:
 # ---------------------------------------------------------------------------
 
 def train(model, run, device, strategy, *, steps=STEPS, params=None,
-          group=None, comm_model=None, counted=False, profile=False):
+          group=None, comm_model=None, counted=False, profile=False,
+          label="mgwfbp"):
     """``steps`` steps of the port's train step; returns the final
     parameters (flat, float32 copy), the losses, step times and what the
     launch counters read after the steps."""
@@ -326,7 +420,7 @@ def train(model, run, device, strategy, *, steps=STEPS, params=None,
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     final = [p.detach().clone() for p in tree.leaves(state.params)]
     # a step beyond the counted ones, after the snapshot of the parameters
-    breakdown = profile_step(step_fn, state, pipe.batch_at(steps)) \
+    breakdown = profile_step(step_fn, state, pipe.batch_at(steps), label) \
         if profile else None
     out = {"params": final, "losses": losses, "ms": times,
            "launches": launches, "peak_bytes": peak, "plan": art.plan,
@@ -335,9 +429,15 @@ def train(model, run, device, strategy, *, steps=STEPS, params=None,
     return out
 
 
-def profile_step(step_fn, state, batch, top: int = 12):
+#: the profiler's names of the port's train-path kernels
+PROFILE_KERNELS = {"bucket_pack": "pack_chunks_kernel",
+                   "bucket_unpack": "unpack_tiles_kernel"}
+
+
+def profile_step(step_fn, state, batch, label: str, top: int = 12):
     """One step under torch.profiler: device time by kernel, and the share
-    of the step's wall time the card was busy."""
+    of the step's wall time the card was busy.  Returns the wall and busy
+    times and, per K1/K2, ``(device ms, launches)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -356,7 +456,7 @@ def profile_step(step_fn, state, batch, top: int = 12):
             and not e.key.startswith("step/")]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] one mgwfbp step under the profiler: wall "
+    log(f"[profile] one {label} step under the profiler: wall "
         f"{wall_ms:.2f} ms, summed device time {busy:.2f} ms over "
         f"{sum(r[1] for r in rows)} device events (streams may overlap)")
     for ms, n, key in rows[:top]:
@@ -368,12 +468,16 @@ def profile_step(step_fn, state, batch, top: int = 12):
              and str(e.device_type).endswith("CUDA")}
     for key, ms in spans.items():
         log(f"[profile]   span {key}: {ms:.3f} ms on the device")
-    for name in ("bucket_copy<true>", "bucket_copy<false>", "nccl",
-                 "gemm", "elementwise"):
+    out = {"wall_ms": wall_ms, "device_ms": busy,
+           "idle_share": 1 - busy / wall_ms}
+    for name in (*PROFILE_KERNELS.values(), "nccl", "gemm", "elementwise"):
         hit = [r for r in rows if name in r[2]]
-        log(f"[profile]   {name}: {sum(r[0] for r in hit):.3f} ms over "
-            f"{sum(r[1] for r in hit)} launches")
-    return {"wall_ms": wall_ms, "device_ms": busy}
+        out[name] = (sum(r[0] for r in hit), sum(r[1] for r in hit))
+        log(f"[profile]   {name}: {out[name][0]:.3f} ms over "
+            f"{out[name][1]} launches")
+    log(f"[profile]   idle share of the wall time (summed device time, "
+        f"streams may overlap): {out['idle_share']:.3f}")
+    return out
 
 
 def phase_small_reference(device):
@@ -402,7 +506,8 @@ def phase_small_reference(device):
 
 
 def phase_main_path(device, plan_expected) -> dict:
-    """Returns the kernel launch counts of the counted mgwfbp steps."""
+    """Returns the kernel launch counts of the counted mgwfbp steps and the
+    profiled step's breakdown."""
     import torch
     from repro_torch.utils import tree
     bundle, run, model = main_path_config()
@@ -436,7 +541,7 @@ def phase_main_path(device, plan_expected) -> dict:
     if [tuple(p.shape) for p in mg["params"]] != shapes or not all(
             bool(torch.isfinite(p).all()) for p in mg["params"]):
         raise AssertionError("parameters changed shape or are not finite")
-    launches = mg["launches"]
+    out = {"launches": mg["launches"], "breakdown": mg["breakdown"]}
     mg_params, mg_losses = mg["params"], mg["losses"]
     del mg
     torch.cuda.empty_cache()
@@ -448,7 +553,69 @@ def phase_main_path(device, plan_expected) -> dict:
         f"mgwfbp: {same}")
     if not same or single["losses"] != mg_losses:
         raise AssertionError("single and mgwfbp disagree")
-    return launches
+    return out
+
+
+def phase_zero1(device, plan_expected, card) -> dict:
+    """Phase 4b: ZeRO-1 at phase 4's shape and plan.  Returns the kernel
+    launch counts of the counted mgwfbp steps.  Only the runs without
+    clipping are compared bit for bit: with clipping, the norm is a sum
+    over the plan's buckets, so its rounding depends on the plan."""
+    import torch
+    from repro_torch.utils import tree
+    bundle, run, model = main_path_config(zero=1)
+    cfg = bundle.cfg
+    prior = four_rank_prior()
+    log(f"[zero1] {cfg.name} full width, seq {SEQ}, global batch {BATCH}, "
+        f"1 rank (NCCL), ZeRO-{run.parallel.zero}, optimizer "
+        f"{run.optimizer}, grad_clip {run.grad_clip}, weight decay "
+        f"{run.weight_decay} (norms and biases exempt)")
+    z = train(model, run, device, "mgwfbp", comm_model=prior, counted=True,
+              profile=True, label="ZeRO-1 mgwfbp")
+    plan = z["plan"]
+    if plan.buckets != plan_expected.buckets:
+        raise AssertionError("ZeRO-1 planned other buckets than phase 2")
+    n = plan.num_buckets * STEPS
+    want = {"bucket_pack": 2 * n, "bucket_unpack": n}
+    log(f"[zero1] mgwfbp: {plan.num_buckets} buckets; losses {z['losses']}; "
+        f"step ms {[round(t, 3) for t in z['ms']]}; peak memory "
+        f"{z['peak_bytes'] / 2**30:.2f} GiB; launches {z['launches']} (want "
+        f"{want}); card {card}")
+    if not all(math.isfinite(x) for x in z["losses"]):
+        raise AssertionError("non-finite ZeRO-1 loss")
+    if not abs(z["losses"][0] - math.log(cfg.vocab_size)) < 1.0:
+        raise AssertionError("first ZeRO-1 loss is far from ln(vocab)")
+    if z["launches"] != want:
+        raise AssertionError("ZeRO-1 did not launch K1 twice and K2 once "
+                             "per bucket per step")
+    shapes = [tuple(p.shape) for p in
+              tree.leaves(model.init(None, device="meta"))]
+    if [tuple(p.shape) for p in z["params"]] != shapes or not all(
+            bool(torch.isfinite(p).all()) for p in z["params"]):
+        raise AssertionError("ZeRO-1 parameters changed shape or are not "
+                             "finite")
+    out = {"launches": z["launches"], "breakdown": z["breakdown"],
+           "ms": z["ms"], "peak_bytes": z["peak_bytes"]}
+    del z
+    torch.cuda.empty_cache()
+    _, run0, model0 = main_path_config(zero=1, grad_clip=0.0)
+    runs = {}
+    for strategy in ("mgwfbp", "single"):
+        r = train(model0, run0, device, strategy, comm_model=prior)
+        runs[strategy] = (r["params"], r["losses"], r["plan"].num_buckets)
+        log(f"[zero1] grad_clip 0, {strategy}: {r['plan'].num_buckets} "
+            f"buckets; losses {r['losses']}; step ms "
+            f"{[round(t, 3) for t in r['ms']]}")
+        del r
+        torch.cuda.empty_cache()
+    same = all(bit_equal(a, b) for a, b in
+               zip(runs["mgwfbp"][0], runs["single"][0]))
+    log(f"[zero1] grad_clip 0: single and mgwfbp parameters bit-identical: "
+        f"{same}")
+    if not same or runs["mgwfbp"][1] != runs["single"][1]:
+        raise AssertionError("ZeRO-1 single and mgwfbp disagree without "
+                             "clipping")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -998,7 +1165,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_small_reference(device)
             torch.cuda.empty_cache()
-            launches = phase_main_path(device, plan)
+            zero0 = phase_main_path(device, plan)
+            torch.cuda.empty_cache()
+            zero1 = phase_zero1(device, plan, card)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -1006,11 +1175,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serving_reference(device)
     torch.cuda.empty_cache()
+    # K1/K2 launches are read on the slice's path (ZeRO-1, phase 4b);
+    # phase 4's ZeRO-0 counts and both profiles' device times stand beside
+    launches = dict(zero1["launches"])
     launches.update(phase_serving_main(device))
-
-    for name in ("bucket_pack", "bucket_unpack"):
-        step[name]["per"] = (f"one train step ({plan.num_buckets} "
+    for name, key in PROFILE_KERNELS.items():
+        step[name]["per"] = (f"one ZeRO-0 train step ({plan.num_buckets} "
                              f"buckets)")
+        step[name]["launches_by_path"] = {
+            f"zero{z}": {"launches": r["launches"][name],
+                         "device_ms_per_step": r["breakdown"][key][0],
+                         "profiled_launches": r["breakdown"][key][1]}
+            for z, r in ((0, zero0), (1, zero1))}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = {**step, **serve}[name]
@@ -1021,7 +1197,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"),
-            "library_ms": r["library_ms"], "per": r["per"]})
+            "library_ms": r["library_ms"], "per": r["per"],
+            **{k: r[k] for k in ("zero1_step", "launches_by_path",
+                                 "host_us_per_call") if k in r}})
     for line in card:
         print(line)
     print(json.dumps({"kernels": kernels}))

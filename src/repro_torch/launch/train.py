@@ -10,9 +10,11 @@ On the CPU with gloo, ``--devices N`` runs N ranks as N processes::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --reduced --steps 5 --devices 2
 
-The flags are the reference launcher's.  Checkpointing (``--ckpt-dir``,
-``--ckpt-every``, ``--resume``) and fault recovery are not ported yet:
-``--resume`` is refused and the checkpoint flags are accepted and unused.
+The flags are the reference launcher's, and so is the ZeRO mode: the
+arch's own ``ParallelConfig.zero`` (ZeRO-1 for qwen2-1.5b), printed as
+``zero=`` in the header line.  Checkpointing (``--ckpt-dir``,
+``--ckpt-every``, ``--resume``) and fault recovery are not ported yet, so
+those flags are refused rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--global-batch", type=int, default=0)
     ap.add_argument("--seq-len", type=int, default=0)
     ap.add_argument("--strategy", default=None)
-    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
-    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     return ap
@@ -67,9 +69,10 @@ def run(args, rank: int = 0, world: int = 1, store_path: str = "") -> None:
             shape = ShapeConfig(shape.name, shape.kind,
                                 args.seq_len or shape.seq_len,
                                 args.global_batch or shape.global_batch)
-        # the port's slice: ZeRO-0, unscanned layers, packed buckets
+        # the port's slice: the arch's ZeRO mode, unscanned layers, packed
+        # buckets
         par = dataclasses.replace(
-            bundle.parallel, dp_axes=("data",), zero=0, scan_layers=False,
+            bundle.parallel, dp_axes=("data",), scan_layers=False,
             pack_kernel=True,
             attn_chunk=min(bundle.parallel.attn_chunk, shape.seq_len))
         run_cfg = dataclasses.replace(bundle.run_config(args.shape, par),
@@ -80,7 +83,7 @@ def run(args, rank: int = 0, world: int = 1, store_path: str = "") -> None:
                                                  device=device)
         if rank == 0:
             print(f"arch={bundle.cfg.name} device={device} world={world} "
-                  f"plan={art.plan.strategy}:{art.plan.num_buckets} buckets "
+                  f"zero={par.zero} plan={art.plan.strategy}:{art.plan.num_buckets} buckets "
                   f"over {art.plan.num_tensors} tensors", flush=True)
         gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
         state = init_fn(gen)
@@ -108,8 +111,11 @@ def _spawned(rank: int, args, world: int, store_path: str) -> None:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    if args.resume:
-        raise SystemExit("--resume: checkpointing is not ported yet")
+    for flag, value in (("--resume", args.resume or None),
+                        ("--ckpt-dir", args.ckpt_dir),
+                        ("--ckpt-every", args.ckpt_every)):
+        if value is not None:
+            raise SystemExit(f"{flag}: checkpointing is not ported yet")
     world = max(args.devices, 1)
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")

@@ -1,6 +1,6 @@
 """Data-parallel train step with MG-WFBP-scheduled gradient communication.
 
-Port of ``repro.train.step`` (ZeRO-0).  Construction
+Port of ``repro.train.step`` (ZeRO-0 and ZeRO-1).  Construction
 (:func:`build_train_step`) happens once:
 
   1. Build the parameter tree on the ``meta`` device and make the planner's
@@ -16,9 +16,20 @@ Port of ``repro.train.step`` (ZeRO-0).  Construction
      the step waits on every bucket, unpacks into the gradients in place,
      clips, and applies the optimizer.
 
+ZeRO-1 (``run.parallel.zero == 1``, qwen2's own setting) runs the same
+hooks with a reduce-scatter in place of the all-reduce, so each rank keeps
+one shard of every reduced bucket.  The gradient norm is taken from the
+shards, as the reference takes it.  Then, bucket by bucket, the
+parameters are packed (K1), ``Optimizer.flat_update`` runs on this rank's
+shard with the bucket's weight-decay mask and the rank's flat moments,
+and the updated shards are all-gathered and unpacked (K2) into the
+parameters in place.  Because the norm is a sum over the plan's buckets,
+two plans agree bit for bit only without clipping (``grad_clip`` 0); the
+update itself is elementwise.
+
 The state is updated in place.  Each rank passes its own shard of the
-batch (``global_batch / world`` sequences).  ZeRO-1/3, expert parallelism
-and hierarchical collectives are not ported yet (ROADMAP queue 1, item 9).
+batch (``global_batch / world`` sequences).  ZeRO-3, expert parallelism
+and hierarchical collectives are not ported yet (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -85,15 +96,39 @@ def build_plan(params_shape, run: RunConfig, mesh_shape, mesh_axes,
     return plan, None, specs, model
 
 
+def _decay_mask_shards(params_shape, plan, opt, use_kernel: bool,
+                       world: int, rank: int, device) -> list[torch.Tensor]:
+    """Per bucket, this rank's shard of the packed weight-decay mask: True
+    over the elements of a leaf that ``opt.weight_decay_mask`` decays,
+    False on the other leaves, on slot tails and on shard padding (the
+    reference's ``decay_masks``, kept as bool to save 3 bytes an
+    element)."""
+    metas = bucketer.leaf_metadata(params_shape)
+    out = []
+    for bucket in plan.buckets:
+        bmetas = [metas[i] for i in bucket]
+        size = comm.bucket_shard_size(
+            bucketer.packed_elems(bmetas, aligned=use_kernel), world)
+        mask = torch.zeros(size * world, dtype=torch.bool, device=device)
+        off = 0
+        for m in bmetas:
+            if opt.weight_decay_mask(m.path):
+                mask[off:off + m.size] = True
+            off += bucketer.slot_elems(m.size, aligned=use_kernel)
+        out.append(mask[rank * size:(rank + 1) * size].clone())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Step builder.
 # ---------------------------------------------------------------------------
 
 def _check_supported(run: RunConfig) -> None:
     par = run.parallel
-    if par.zero != 0:
+    if par.zero not in (0, 1):
         raise NotImplementedError(f"ZeRO-{par.zero} is not ported yet "
-                                  f"(ROADMAP queue 1, item 9); use zero=0")
+                                  f"(ROADMAP queue 1, item 5); use zero=0 "
+                                  f"or 1")
     if par.ep_axis:
         raise NotImplementedError("expert parallelism is not ported yet")
     if len(par.dp_axes) > 1:
@@ -124,6 +159,10 @@ def build_train_step(model: LM, run: RunConfig, group=None,
     device = torch.device(device)
     reduce_grads = bool(par.dp_axes)
     world = dist.get_world_size(group) if reduce_grads else 1
+    rank = dist.get_rank(group) if reduce_grads else 0
+    # ZeRO-1 shards over the data axis: without one it is ZeRO-0, as in the
+    # reference
+    zero = par.zero if reduce_grads else 0
     mesh_axes = tuple(par.dp_axes) or ("data",)
     mesh_shape = (world,) + (1,) * (len(mesh_axes) - 1)
 
@@ -146,6 +185,11 @@ def build_train_step(model: LM, run: RunConfig, group=None,
     micro = min(run.microbatch or local_batch, local_batch)
     n_micro = max(local_batch // micro, 1)
 
+    # this rank's shard of each bucket's weight-decay mask (ZeRO-1 only)
+    decay_masks = (_decay_mask_shards(params_shape, plan, opt, use_kernel,
+                                      world, rank, device)
+                   if zero == 1 else None)
+
     # ------------------------------------------------------------------
 
     def init_fn(generator: torch.Generator | None = None, params=None):
@@ -165,11 +209,12 @@ def build_train_step(model: LM, run: RunConfig, group=None,
         targets = (tree.tree_map(lambda p: p.grad, params) if n_micro == 1
                    else tree.tree_map(lambda p: torch.zeros_like(
                        p, dtype=torch.float32), params))
-        sync = None
+        sync = gather = None
         if reduce_grads:
             sync = comm.BucketedAllReduce(
                 targets, plan, group, mean=True,
-                wire_dtype=par.wire_dtype or None, use_kernel=use_kernel)
+                wire_dtype=par.wire_dtype or None, use_kernel=use_kernel,
+                collective="reduce_scatter" if zero == 1 else "all_reduce")
             acc_by_index = [t for _, t in
                             bucketer.leaves_in_backward_order(targets)]
 
@@ -177,7 +222,16 @@ def build_train_step(model: LM, run: RunConfig, group=None,
                 acc_by_index[i].add_(p.grad).div_(n_micro)
 
             sync.attach(params, None if n_micro == 1 else last_micro)
-        return TrainState.create(params, opt.init(params), targets, sync)
+        if zero == 1:
+            # flat moments per bucket shard, as the reference's init_state
+            gather = comm.BucketedAllGather(params, plan, group,
+                                            use_kernel=use_kernel)
+            opt_state = [opt.init_leaf(torch.zeros(n, dtype=torch.float32,
+                                                   device=device))
+                         for n in gather.shard_sizes]
+        else:
+            opt_state = opt.init(params)
+        return TrainState.create(params, opt_state, targets, sync, gather)
 
     def accumulate(params, p_leaves, g_leaves, sync, batch):
         """Microbatches accumulate in float32 into ``g_leaves`` and are
@@ -204,6 +258,28 @@ def build_train_step(model: LM, run: RunConfig, group=None,
                     torch._foreach_div_(g_leaves, float(n_micro))
         return loss_sum / n_micro, metrics
 
+    def update_zero1(state: TrainState, shards, lr: float) -> torch.Tensor:
+        """The reference's ``step_zero1`` after its reduce-scatter: the
+        norm from the shards, then per bucket K1 of the parameters, the
+        flat update of this rank's shard, the all-gather and K2."""
+        with record_function("step/clip"):
+            norms = torch._foreach_norm(shards, 2, dtype=torch.float32)
+            sq = torch.stack(norms).square().sum()
+            if world > 1:
+                dist.all_reduce(sq, group=group)
+            gnorm = sq.sqrt()
+            scale = (torch.clamp(run.grad_clip / torch.clamp(gnorm, min=1e-12),
+                                 max=1.0) if run.grad_clip > 0 else None)
+        gather = state.param_sync
+        with record_function("step/optimizer"), torch.no_grad():
+            for k, shard in enumerate(shards):
+                buf, pshard = gather.pack_shard(k)
+                g = shard.float() if scale is None else shard.float() * scale
+                opt.flat_update(g, pshard, state.opt_state[k], state.step,
+                                lr, decay_masks[k])
+                gather.gather(k, buf, pshard)
+        return gnorm
+
     def step_fn(state: TrainState, batch):
         params = state.params
         p_leaves = tree.leaves(params)
@@ -224,16 +300,20 @@ def build_train_step(model: LM, run: RunConfig, group=None,
             else:
                 loss, metrics = accumulate(params, p_leaves, g_leaves, sync,
                                            batch)
+        shards = None
         if sync is not None:
             with record_function("step/finish_buckets"):
-                sync.finish()
-        grads = state.grads
-        with record_function("step/clip"):
-            gnorm = oclip.global_norm(grads)
-            oclip.clip_by_global_norm(grads, run.grad_clip, gnorm)
+                shards = sync.finish()
         lr = lr_fn(state.step)
-        with record_function("step/optimizer"):
-            opt.update(grads, params, state.opt_state, state.step, lr)
+        if zero == 1:
+            gnorm = update_zero1(state, shards, lr)
+        else:
+            grads = state.grads
+            with record_function("step/clip"):
+                gnorm = oclip.global_norm(grads)
+                oclip.clip_by_global_norm(grads, run.grad_clip, gnorm)
+            with record_function("step/optimizer"):
+                opt.update(grads, params, state.opt_state, state.step, lr)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(loss=loss, grad_norm=gnorm,

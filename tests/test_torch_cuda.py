@@ -133,6 +133,104 @@ def test_train_step_launches_once_per_bucket(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+# K1 over its chunk list: (shapes, member dtypes, misaligned member indices)
+EDGE = {
+    "zero_size": ([(0,), (33,), (0,), (1024,)], [BF16] * 4, ()),
+    "off_by_2_bytes": ([(1000,), (4, 300), (17,)], [BF16] * 3, (1,)),
+    "mixed": ([(33,), (70,), (600,), (4, 128), (4096,)],
+              [BF16, F32, BF16, F32, F32], ()),
+    "one_element": ([(1,)] * 6, [BF16, F32] * 3, ()),
+    "forty": ([(7,)] * 20 + [(3, 11)] * 20, [F32] * 30 + [BF16] * 10, ()),
+    "larger_than_a_chunk": ([(3, 20000), (70000,), (5,)], [BF16, F32, BF16],
+                            ()),
+}
+
+
+def _edge_members(case, device):
+    shapes, dtypes, off = EDGE[case]
+    rng = np.random.default_rng(1)
+    out = []
+    for j, (s, dt) in enumerate(zip(shapes, dtypes)):
+        a = torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        t = a.to(device=device, dtype=dt)
+        if j in off:
+            host = torch.empty(t.numel() + 1, dtype=dt, device=device)
+            host[1:].copy_(t.reshape(-1))
+            t = host[1:].view(s)
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("buf_dtype", [F32, BF16], ids=["f32_buf",
+                                                         "bf16_buf"])
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_k1_chunk_list_bit_equal_to_plain(case, buf_dtype, cuda):
+    members = _edge_members(case, cuda)
+    if case == "off_by_2_bytes":
+        assert members[1].data_ptr() % 16 == 2
+    table = K.MemberTable(members)
+    for _ in range(2):           # the second call reuses the cached lists
+        buf = K.pack(table, buf_dtype)
+        torch.cuda.synchronize()
+        want = K.pack_plain(members, buf_dtype)
+        assert buf.dtype == want.dtype and buf.shape == want.shape
+        assert torch.equal(_bits(buf), _bits(want))
+    assert list(table.pack_args) == [buf_dtype]
+
+
+def test_k1_k2_raise_on_moved_storage_and_bad_buffer(cuda):
+    members = _members("three_bf16", cuda)
+    table = K.MemberTable(members)
+    with pytest.raises(RuntimeError, match="moved"):
+        table.check([members[0], members[1].clone(), members[2]])
+    with pytest.raises(ValueError):
+        K.pack(table, torch.float16)
+    with pytest.raises(ValueError, match="aligned"):
+        K.unpack(table, torch.empty(table.total + 1, dtype=BF16,
+                                    device=cuda)[1:])
+    with pytest.raises(ValueError):
+        K.unpack(table, K.pack(table).float()[:-1])
+
+
+def test_zero1_step_launches_and_plans_agree(cuda, tmp_path):
+    """ZeRO-1 packs each bucket twice a step (gradients, then parameters)
+    and unpacks it once (the gathered parameters).  Without clipping, two
+    plans give bit-identical parameters."""
+    import torch.distributed as dist
+    from repro_torch.train.step import build_train_step
+    b = registry.reduced_arch("qwen2-1.5b")
+    par = dataclasses.replace(b.parallel, dp_axes=("data",), zero=1,
+                              scan_layers=False, pack_kernel=True,
+                              attn_chunk=32)
+    run = dataclasses.replace(b.run_config("train_4k", par),
+                              shape=ShapeConfig("tiny", "train", 32, 4),
+                              grad_clip=0.0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1)
+    try:
+        params = {}
+        for strategy in ("wfbp", "single"):
+            step_fn, init_fn, art = build_train_step(
+                b.model(par), run, strategy=strategy, device=cuda)
+            state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+            pipe = DataPipeline(b.cfg, run.shape, seed=0)
+            K.reset_launches()
+            for s in range(3):
+                state, metrics = step_fn(state, pipe.batch_at(s))
+            torch.cuda.synchronize()
+            n = art.plan.num_buckets * 3
+            assert K.launches == {"bucket_pack": 2 * n, "bucket_unpack": n}
+            assert np.isfinite(metrics["loss"].item())
+            assert len(state.opt_state) == art.plan.num_buckets
+            params[strategy] = [p.detach().clone() for p in
+                                state.params["stages"][0]["blk00"]["attn"]
+                                .values()]
+        for a, w in zip(params["wfbp"], params["single"]):
+            assert torch.equal(_bits(a), _bits(w))
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # The serving kernels: K3 (RMSNorm) and K4 (flash attention).
 # ---------------------------------------------------------------------------

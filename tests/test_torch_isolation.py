@@ -39,7 +39,9 @@ def test_step_imports_without_jax():
             "sys.modules['repro'] = None; "
             "import repro_torch.train.step, repro_torch.launch.train, "
             "repro_torch.bridge, repro_torch.serve.engine, "
-            "repro_torch.launch.serve; print('ok')")
+            "repro_torch.launch.serve, repro_torch.core.comm, "
+            "repro_torch.optim.optimizers, repro_torch.train.train_state, "
+            "repro_torch.kernels.bucket_pack.kernel; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=120)
