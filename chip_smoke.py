@@ -37,6 +37,17 @@ Phases, each of which fails the run loudly:
    must give bit-identical parameters.  With clipping on they need not:
    the norm is summed over the plan's buckets, so its rounding, and with
    it the clip scale, depends on the plan.
+4c. The Measure stage and the live replan loop, in the same one-rank NCCL
+   group at phase 4's shape: the all-reduce fit ``T(M) = a + b*M`` from
+   timed NCCL calls at 64 KiB-64 MiB (one rank moves no bytes between
+   cards, so it is dispatch cost), the measured forward and backward of
+   the full-width model split per tensor, the plans under the measured
+   model against the 4-rank prior's, then ``closed_loop`` at ZeRO-0 seeded
+   with ``wfbp`` for 6 steps: it must swap to fewer buckets, launch K1 and
+   K2 once per bucket of the plan in force every step, and end with
+   parameters bit-identical to 6 never-replanned ``wfbp`` steps.  Last,
+   ZeRO-1 at qwen2's own setting from the measured plan (2 steps, K1
+   twice per bucket), and ``closed_loop`` at ZeRO-1 must refuse.
 5. The serving kernels K3 and K4 against their plain versions at the
    serving path's shapes and a few others, each within its stated
    tolerance, and timed against the plain version, one PyTorch call for
@@ -80,6 +91,11 @@ SEQ, BATCH, STEPS = 1024, 2, 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor cores, same sheet
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 1024, 32
+REPLAN_STEPS, ZERO1_MEASURED_STEPS = 6, 2
+COMM_SIZES = (64 << 10, 1 << 20, 16 << 20, 64 << 20)
+#: one tensor of each kind, for the measured profile's printout
+PROFILED_LEAVES = ("['embed']", "['stages'][0]['blk00']['mlp']['w_up']",
+                   "['stages'][0]['blk00']['norm1']")
 FOUR_RANK_PRIOR = ((4,), ("data",), ("data",))
 KERNELS = {
     "bucket_pack": ("src/repro_torch/kernels/bucket_pack/csrc/bucket_pack.cu",
@@ -388,8 +404,8 @@ def phase_kernels(device, plan, shapes) -> dict:
 # ---------------------------------------------------------------------------
 
 def train(model, run, device, strategy, *, steps=STEPS, params=None,
-          group=None, comm_model=None, counted=False, profile=False,
-          label="mgwfbp"):
+          group=None, comm_model=None, tb_table=None, counted=False,
+          profile=False, label="mgwfbp"):
     """``steps`` steps of the port's train step; returns the final
     parameters (flat, float32 copy), the losses, step times and what the
     launch counters read after the steps."""
@@ -400,7 +416,7 @@ def train(model, run, device, strategy, *, steps=STEPS, params=None,
     from repro_torch.utils import tree
     step_fn, init_fn, art = build_train_step(
         model, run, group=group, strategy=strategy, comm_model=comm_model,
-        device=device)
+        tb_table=tb_table, device=device)
     gen = torch.Generator(device=device).manual_seed(run.seed)
     state = init_fn(gen, params=params)
     pipe = DataPipeline(model.cfg, run.shape, seed=run.seed)
@@ -616,6 +632,181 @@ def phase_zero1(device, plan_expected, card) -> dict:
         raise AssertionError("ZeRO-1 single and mgwfbp disagree without "
                              "clipping")
     return out
+
+
+def measure_costs(device, card, model, run):
+    """Phase 4c, parts 1-3: the comm fit, the loss profile, and the plans
+    under the measured model against the prior's.  Returns the model,
+    ``t_f`` and the per-tensor table."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import bucketer, profiler
+    from repro_torch.core.simulator import simulate
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.train import replan
+    from repro_torch.train.step import build_plan
+    cm = replan.measure_comm_model(dist.group.WORLD, ("data",), COMM_SIZES,
+                                   n_warmup=3, n_iters=20,
+                                   name="nccl_one_rank", device=device)
+    log(f"[measure] NCCL all-reduce of float32 buffers on one rank at "
+        f"{[n >> 10 for n in COMM_SIZES]} KiB, least squares: a = "
+        f"{cm.a * 1e6:.3f} us, b = {cm.b * 1e9:.6f} ns/B, T(64 MiB) = "
+        f"{cm.time(64 << 20) * 1e6:.3f} us; one rank's all-reduce moves no "
+        f"bytes between cards, so this fit is dispatch cost only; card "
+        f"{card}")
+    if not cm.a > 0:
+        raise AssertionError("the measured all-reduce latency a is 0: no "
+                             "merge would pay")
+
+    params = model.init(torch.Generator(device=device).manual_seed(run.seed),
+                        device=device)
+    batch = {k: v.to(device) for k, v in
+             DataPipeline(model.cfg, run.shape, seed=run.seed)
+             .batch_at(0).items()}
+    metas = bucketer.leaf_metadata(params)
+    t_f, tb = profiler.measure_loss_profile(
+        lambda p, b: model.loss(p, b)[0], (params, batch), metas,
+        n_warmup=2, n_iters=5)
+    del params, batch
+    torch.cuda.empty_cache()
+    t_b = sum(tb.values())
+    prior_tb = profiler.analytic_tb(BATCH * SEQ)
+    log(f"[measure] full-width loss profile, batch {BATCH} x {SEQ}: t_f "
+        f"{t_f * 1e3:.3f} ms (no_grad forward), t_b {t_b * 1e3:.3f} ms in "
+        f"total over {len(tb)} tensors (VJP minus forward, split by size); "
+        f"analytic_tb under the TPU priors sums to "
+        f"{sum(prior_tb(m) for m in metas) * 1e3:.3f} ms")
+    for path in PROFILED_LEAVES:
+        m = next(m for m in metas if m.path == path)
+        log(f"[measure]   t_b {path} {m.shape}: {tb[path] * 1e6:.3f} us "
+            f"(analytic {prior_tb(m) * 1e6:.3f} us)")
+    if not (t_f > 0 and t_b > 0 and list(tb) == [m.path for m in metas]):
+        raise AssertionError("the loss profile is empty or not positive")
+
+    shapes = model.init(None, device="meta")
+    sims, plans = {}, {}
+    for strategy in ("wfbp", "mgwfbp", "dp_optimal"):
+        plan, _, specs, _ = build_plan(shapes, run, (1,), ("data",),
+                                       strategy, tb_table=tb, comm_model=cm)
+        plans[strategy] = plan
+        sims[strategy] = simulate(specs, plan, cm, t_f)
+        log(f"[measure] {strategy:10s} under the measured model: "
+            f"{plan.num_buckets} buckets, simulated t_iter "
+            f"{sims[strategy].t_iter * 1e3:.6f} ms, non-overlapped comm "
+            f"{sims[strategy].t_c_no * 1e6:.3f} us")
+    prior, _, _, _ = build_plan(shapes, run, (1,), ("data",),
+                                comm_model=four_rank_prior())
+    # every strategy's specs carry the same measured t_b
+    sim = simulate(specs, prior, cm, t_f)
+    log(f"[measure] the 4-rank TPU prior's mgwfbp plan: {prior.num_buckets} "
+        f"buckets (the measured mgwfbp plan's buckets: "
+        f"{prior.buckets == plans['mgwfbp'].buckets}); under the measured "
+        f"model t_iter {sim.t_iter * 1e3:.6f} ms, non-overlapped comm "
+        f"{sim.t_c_no * 1e6:.3f} us")
+    best = sims["dp_optimal"].t_iter
+    if not all(best <= r.t_iter * (1 + 1e-12) for r in sims.values()):
+        raise AssertionError("dp_optimal is not the best plan under the "
+                             "measured model")
+    return cm, t_f, tb
+
+
+def phase_measured_replan(device, card) -> dict:
+    """Phase 4c: measure, plan, then the live replan loop at ZeRO-0 and
+    measured-cost ZeRO-1.  Returns K1/K2 launch counts per path."""
+    import torch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.bucket_pack import kernel as K
+    from repro_torch.obs.recorder import FlightRecorder
+    from repro_torch.train import replan
+    from repro_torch.utils import tree
+    bundle, run, model = main_path_config()
+    cm, t_f, tb = measure_costs(device, card, model, run)
+
+    rec = FlightRecorder()
+    ctl, init_fn, art = replan.closed_loop(
+        model, run, strategy="wfbp", tb_table=tb, comm_model=cm, t_f=t_f,
+        recorder=rec, warmup=1, interval=2, hysteresis=1e-9, device=device)
+    state = init_fn(torch.Generator(device=device).manual_seed(run.seed))
+    pipe = DataPipeline(model.cfg, run.shape, seed=run.seed)
+    steps, losses = [], []
+    K.reset_launches()
+    for s in range(REPLAN_STEPS):
+        in_force = ctl.plan.num_buckets
+        before, refits = dict(K.launches), len(ctl.decisions)
+        state, metrics = ctl.step_fn(state, pipe.batch_at(s))
+        losses.append(metrics["loss"].item())
+        steps.append({"buckets": in_force,
+                      "launches": {k: K.launches[k] - before[k]
+                                   for k in before},
+                      "ms": rec.iterations()[-1].t_iter * 1e3,
+                      "residual": ctl.monitor.residual()})
+        d = ctl.decisions[-1] if len(ctl.decisions) > refits else None
+        log(f"[replan] step {s}: {in_force} buckets in force, launches "
+            f"{steps[-1]['launches']}, {steps[-1]['ms']:.3f} ms, loss "
+            f"{losses[-1]:.6f}, drift residual {steps[-1]['residual']:.4f}"
+            + ("" if d is None else
+               f"; refit: stretch {d.stretch:.4f}, a {d.model.a * 1e6:.3f} "
+               f"us, b {d.model.b * 1e9:.6f} ns/B, {d.old_plan.num_buckets}"
+               f" -> {d.new_plan.num_buckets} buckets, predicted "
+               f"{d.predicted_old * 1e3:.6f} -> {d.predicted_new * 1e3:.6f}"
+               f" ms, swapped {d.swapped}"))
+    launches = dict(K.launches)
+    state.grad_sync.check(state.grads)
+    final = [p.detach().clone() for p in tree.leaves(state.params)]
+    del state
+    torch.cuda.empty_cache()
+    swaps = [d for d in ctl.decisions if d.swapped]
+    if not swaps:
+        raise AssertionError("the replan loop never swapped")
+    if any(d.new_plan.num_buckets >= d.old_plan.num_buckets or
+           d.predicted_new > d.predicted_old for d in swaps):
+        raise AssertionError("a swap did not merge or did not predict a win")
+    if not rec.events("planner_update"):
+        raise AssertionError("the planner recorded no planner_update event")
+    for st in steps:
+        if st["launches"] != {"bucket_pack": st["buckets"],
+                              "bucket_unpack": st["buckets"]}:
+            raise AssertionError("K1/K2 launches differ from the plan in "
+                                 f"force: {st}")
+    if len({st["buckets"] for st in steps}) < 2:
+        raise AssertionError("no step ran under the swapped plan")
+    ref = train(model, run, device, "wfbp", steps=REPLAN_STEPS,
+                comm_model=cm, tb_table=tb)
+    same = all(bit_equal(a, b) for a, b in zip(final, ref["params"]))
+    log(f"[replan] {len(swaps)} swaps; never-replanned wfbp: losses "
+        f"{ref['losses']}, step ms {[round(t, 3) for t in ref['ms']]}; "
+        f"parameters bit-identical: {same}")
+    if not same or ref["losses"] != losses:
+        raise AssertionError("the replanned run differs from wfbp")
+    del ref, final
+    torch.cuda.empty_cache()
+
+    _, run1, model1 = main_path_config(zero=1)
+    z = train(model1, run1, device, "mgwfbp", steps=ZERO1_MEASURED_STEPS,
+              comm_model=cm, tb_table=tb, counted=True)
+    n = z["plan"].num_buckets * ZERO1_MEASURED_STEPS
+    log(f"[replan] ZeRO-1 from the measured plan: {z['plan'].num_buckets} "
+        f"buckets; losses {z['losses']}; step ms "
+        f"{[round(t, 3) for t in z['ms']]}; launches {z['launches']}")
+    if z["launches"] != {"bucket_pack": 2 * n, "bucket_unpack": n} or \
+            not all(math.isfinite(x) for x in z["losses"]):
+        raise AssertionError("measured-cost ZeRO-1 went wrong")
+    zero1_launches = z["launches"]
+    del z
+    torch.cuda.empty_cache()
+    try:
+        replan.closed_loop(model1, run1, strategy="wfbp", device=device)
+    except NotImplementedError as e:
+        log(f"[replan] closed_loop at ZeRO-1 refuses: {e}")
+    else:
+        raise AssertionError("closed_loop accepted ZeRO-1")
+    return {name: {"replan": {"launches": launches[name],
+                              "per_step": [st["launches"][name]
+                                           for st in steps],
+                              "buckets_per_step": [st["buckets"]
+                                                   for st in steps]},
+                   "zero1_measured": {"launches": zero1_launches[name]}}
+            for name in launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1168,6 +1359,8 @@ def main() -> int:
             zero0 = phase_main_path(device, plan)
             torch.cuda.empty_cache()
             zero1 = phase_zero1(device, plan, card)
+            torch.cuda.empty_cache()
+            measured = phase_measured_replan(device, card)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -1187,6 +1380,7 @@ def main() -> int:
                          "device_ms_per_step": r["breakdown"][key][0],
                          "profiled_launches": r["breakdown"][key][1]}
             for z, r in ((0, zero0), (1, zero1))}
+        step[name]["launches_by_path"].update(measured[name])
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = {**step, **serve}[name]

@@ -271,6 +271,7 @@ class BucketedAllReduce:
         self._next = 0
         self._inflight: list[_InFlight] = []
         self.armed = False
+        self.handles: list = []
 
     # -- per step ----------------------------------------------------------
 
@@ -337,7 +338,7 @@ class BucketedAllReduce:
         """Register a post-accumulate-grad hook on every leaf of ``params``
         (the same tree structure as ``grads``) that calls ``on_grad(i, p)``
         and then :meth:`mark_ready(i) <mark_ready>` while armed.  Returns
-        the hook handles."""
+        the hook handles, which :meth:`detach` removes."""
         metas = bucketer.leaf_metadata(params)
         if [m.path for m in metas] != self.paths:
             raise ValueError("params and grads trees differ")
@@ -352,7 +353,17 @@ class BucketedAllReduce:
                 self.mark_ready(i)
             handles.append(
                 by_path[m.path].register_post_accumulate_grad_hook(hook))
+        self.handles.extend(handles)
         return handles
+
+    def detach(self) -> None:
+        """Remove every hook :meth:`attach` registered.  A step that swaps
+        in another plan detaches the old object first: its hooks would
+        otherwise stay on the parameters beside the new plan's."""
+        self.armed = False
+        for h in self.handles:
+            h.remove()
+        self.handles = []
 
     # -- internals ---------------------------------------------------------
 

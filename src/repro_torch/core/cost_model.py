@@ -2,11 +2,12 @@
 
 Port of the part of ``repro.core.cost_model`` that planning needs: the
 linear model ``T(M) = a + b * M`` (paper Eq. 10), its per-link path form,
-and :func:`production_comm_model`.  The hardware constants are still the
+:func:`production_comm_model`, the damped update :func:`blend` and the
+least-squares :func:`fit`.  The hardware constants are still the
 reference's TPU v5e priors, kept unchanged so that the port's plans stay
 bit-equal to the reference's.  They are priors, not measurements of the
-card the port runs on: H100 priors and measured fits come with the
-measured-cost loop.
+card the port runs on: the card's own model is the one
+``train.replan.measure_comm_model`` fits from timed collectives.
 
 The key property exploited by MG-WFBP (paper Eq. 11) is super-additivity of
 the startup term:
@@ -19,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 from typing import Sequence
+
+import numpy as np
 
 # ---------------------------------------------------------------------------
 # TPU v5e priors (the reference's constants; not H100 numbers).
@@ -58,6 +61,32 @@ class AllReduceModel:
 
     def scaled(self, factor: float) -> "AllReduceModel":
         return AllReduceModel(self.a * factor, self.b * factor, self.name)
+
+
+def blend(old: AllReduceModel, new: AllReduceModel,
+          weight: float) -> AllReduceModel:
+    """Damped model update: ``weight`` on the new estimate, rest on the
+    old.  A full-step update (weight=1) can flip between two plans whose
+    observations each justify the other's model."""
+    if not 0.0 <= weight <= 1.0:
+        raise ValueError(f"blend weight must be in [0, 1], got {weight}")
+    return AllReduceModel(old.a * (1 - weight) + new.a * weight,
+                          old.b * (1 - weight) + new.b * weight,
+                          new.name)
+
+
+def fit(sizes_bytes: Sequence[float], times_s: Sequence[float],
+        name: str = "fitted") -> AllReduceModel:
+    """Least-squares fit of ``T(M) = a + b*M`` from measurements (paper
+    Fig. 4).  A negative ``a`` or ``b`` (possible with noisy samples) is
+    clamped to zero: it is not physical and breaks the merge logic."""
+    sizes = np.asarray(sizes_bytes, dtype=np.float64)
+    times = np.asarray(times_s, dtype=np.float64)
+    if sizes.shape != times.shape or sizes.ndim != 1 or sizes.size < 2:
+        raise ValueError("need >= 2 paired (size, time) samples")
+    A = np.stack([np.ones_like(sizes), sizes], axis=1)
+    (a, b), *_ = np.linalg.lstsq(A, times, rcond=None)
+    return AllReduceModel(max(float(a), 0.0), max(float(b), 0.0), name)
 
 
 # ---------------------------------------------------------------------------

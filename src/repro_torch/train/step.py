@@ -30,11 +30,24 @@ update itself is elementwise.
 The state is updated in place.  Each rank passes its own shard of the
 batch (``global_batch / world`` sequences).  ZeRO-3, expert parallelism
 and hierarchical collectives are not ported yet (ROADMAP queue 1, item 5).
+
+A step built for another plan (``plan_override``, the replan loop's swap)
+rebinds the state it is given on its first call: it detaches the old
+plan's hooks and builds its own :class:`BucketedAllReduce`, with new
+kernel member tables, over the same gradient storages.  Nothing of the
+state moves.  Under ZeRO-1 the flat moments are laid out per bucket
+shard, so a state cannot change plans there (the reference has no
+re-layout either).
+
+:func:`instrument_step` wraps a step with host-side flight recording: a
+wall clock around the step, which ends in a device synchronize on the
+card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 import torch.distributed as dist
@@ -42,7 +55,11 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import bucketer, comm, cost_model, planner, profiler
+from repro_torch.core.simulator import simulate
 from repro_torch.models.transformer import LM
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.recorder import (BucketRecord, IterationRecord,
+                                      plan_fingerprint)
 from repro_torch.optim import clip as oclip
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedule import warmup_cosine
@@ -58,6 +75,7 @@ class StepArtifacts:
     comm_model: cost_model.AllReduceModel
     world: int
     n_micro: int
+    device: torch.device
 
 
 # ---------------------------------------------------------------------------
@@ -139,14 +157,17 @@ def _check_supported(run: RunConfig) -> None:
 def build_train_step(model: LM, run: RunConfig, group=None,
                      strategy: str | None = None,
                      tb_table: dict | None = None, comm_model=None,
-                     device="cuda"):
+                     device="cuda",
+                     plan_override: planner.MergePlan | None = None):
     """Returns ``(step_fn, init_fn, StepArtifacts)``.
 
     ``group`` is the data-parallel process group (default: the default
     group); it must be initialized unless ``run.parallel.dp_axes`` is
     empty, in which case nothing is reduced.  ``tb_table`` / ``comm_model``
     thread measured or assumed costs into the plan (see
-    :func:`build_plan`).
+    :func:`build_plan`).  ``plan_override`` installs a given merge plan
+    over the same tensor specs, bypassing the strategy (the replan loop's
+    swap; bucketing changes step timing, never numerics).
 
     ``init_fn(generator=None, params=None)`` returns a :class:`TrainState`
     from fresh parameters drawn from ``generator`` or from a given
@@ -180,6 +201,12 @@ def build_train_step(model: LM, run: RunConfig, group=None,
                                         mesh_axes, strategy,
                                         tb_table=tb_table,
                                         comm_model=comm_model)
+    if plan_override is not None:
+        if plan_override.num_tensors != len(specs):
+            raise ValueError(
+                f"plan_override covers {plan_override.num_tensors} tensors "
+                f"but the step has {len(specs)}")
+        plan = plan_override
 
     local_batch = max(run.shape.global_batch // max(world, 1), 1)
     micro = min(run.microbatch or local_batch, local_batch)
@@ -191,6 +218,31 @@ def build_train_step(model: LM, run: RunConfig, group=None,
                    if zero == 1 else None)
 
     # ------------------------------------------------------------------
+
+    def bind(params, targets) -> comm.BucketedAllReduce:
+        """This plan's hook-driven reduction of ``targets``, hooked on
+        ``params``."""
+        sync = comm.BucketedAllReduce(
+            targets, plan, group, mean=True,
+            wire_dtype=par.wire_dtype or None, use_kernel=use_kernel,
+            collective="reduce_scatter" if zero == 1 else "all_reduce")
+        acc_by_index = [t for _, t in
+                        bucketer.leaves_in_backward_order(targets)]
+
+        def last_micro(i, p):
+            acc_by_index[i].add_(p.grad).div_(n_micro)
+
+        sync.attach(params, None if n_micro == 1 else last_micro)
+        return sync
+
+    def rebind(state: TrainState) -> None:
+        """Swap ``state`` over to this step's plan, in place."""
+        if zero == 1:
+            raise NotImplementedError(
+                "a ZeRO-1 state cannot change plans: its flat moments are "
+                "laid out per bucket shard of the plan it was built for")
+        state.grad_sync.detach()
+        state.grad_sync = bind(state.params, state.grads)
 
     def init_fn(generator: torch.Generator | None = None, params=None):
         if params is None:
@@ -209,19 +261,8 @@ def build_train_step(model: LM, run: RunConfig, group=None,
         targets = (tree.tree_map(lambda p: p.grad, params) if n_micro == 1
                    else tree.tree_map(lambda p: torch.zeros_like(
                        p, dtype=torch.float32), params))
-        sync = gather = None
-        if reduce_grads:
-            sync = comm.BucketedAllReduce(
-                targets, plan, group, mean=True,
-                wire_dtype=par.wire_dtype or None, use_kernel=use_kernel,
-                collective="reduce_scatter" if zero == 1 else "all_reduce")
-            acc_by_index = [t for _, t in
-                            bucketer.leaves_in_backward_order(targets)]
-
-            def last_micro(i, p):
-                acc_by_index[i].add_(p.grad).div_(n_micro)
-
-            sync.attach(params, None if n_micro == 1 else last_micro)
+        sync = bind(params, targets) if reduce_grads else None
+        gather = None
         if zero == 1:
             # flat moments per bucket shard, as the reference's init_state
             gather = comm.BucketedAllGather(params, plan, group,
@@ -284,6 +325,9 @@ def build_train_step(model: LM, run: RunConfig, group=None,
         params = state.params
         p_leaves = tree.leaves(params)
         g_leaves = tree.leaves(state.grads)
+        if state.grad_sync is not None and \
+                state.grad_sync.plan.buckets != plan.buckets:
+            rebind(state)
         sync = state.grad_sync
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         with torch.no_grad():
@@ -327,5 +371,72 @@ def build_train_step(model: LM, run: RunConfig, group=None,
         return state, metrics
 
     art = StepArtifacts(plan=plan, specs=specs, comm_model=cmodel,
-                        world=world, n_micro=n_micro)
+                        world=world, n_micro=n_micro, device=device)
     return step_fn, init_fn, art
+
+
+# ---------------------------------------------------------------------------
+# Host-side observability: the measurement half of the measure -> plan loop.
+# ---------------------------------------------------------------------------
+
+def instrument_step(step_fn, art: StepArtifacts, *, job: str = "train",
+                    t_f: float = 0.0, recorder=None, source: str = "train",
+                    clock=None, sync: bool = True, on_record=None):
+    """Wrap a step function with host-side flight recording.
+
+    A wall clock is read before the step and after it; on the card the
+    step is first waited for with ``torch.cuda.synchronize``.  Per-bucket
+    communication windows are not read on the host, so each record
+    carries the closed-form per-bucket estimate (``core.simulator.simulate``
+    over the step's own plan, specs and comm model) rescaled to the
+    measured wall time and flagged ``estimated_buckets`` in ``args``.
+    Every step also lands in the ``train_step_seconds`` histogram.
+
+    ``clock`` injects a time source (deterministic tests); ``sync=False``
+    skips the device synchronize (callers that already synchronize).
+    ``on_record`` receives each :class:`IterationRecord` after it is
+    (optionally) recorded: the hook a
+    :class:`repro_torch.train.replan.ReplanController` consumes.
+    """
+    est = simulate(art.specs, art.plan, art.comm_model, t_f)
+    fingerprint = plan_fingerprint(art.plan)
+    now = clock if clock is not None else time.perf_counter
+    wait = sync and art.device.type == "cuda"
+    hist = REGISTRY.histogram("train_step_seconds",
+                              "real train-step wall time")
+    step_idx = 0
+
+    def wrapped(state, batch):
+        nonlocal step_idx
+        t0 = now()
+        out = step_fn(state, batch)
+        if wait:
+            torch.cuda.synchronize(art.device)
+        t1 = now()
+        hist.observe(t1 - t0, job=job)
+        if recorder is not None or on_record is not None:
+            # map the closed-form timeline (backward-origin clock, total
+            # span est.t_iter) onto the measured wall window [t0, t1]
+            scale = (t1 - t0) / est.t_iter if est.t_iter > 0 else 0.0
+            buckets = tuple(
+                BucketRecord(bucket=e.bucket, nbytes=e.nbytes,
+                             ready=t0 + (t_f + e.ready) * scale,
+                             start=t0 + (t_f + e.start) * scale,
+                             end=t0 + (t_f + e.end) * scale)
+                for e in est.events)
+            args = {"plan": fingerprint, "estimated_buckets": True,
+                    "predicted_t_iter": est.t_iter,
+                    "overlap_ratio": est.overlap_ratio}
+            rec = IterationRecord(
+                source=source, job=job, iteration=step_idx,
+                start=t0, end=t1,
+                backward_end=t0 + (t_f + est.t_b_total) * scale,
+                buckets=buckets, args=args)
+            if recorder is not None:
+                recorder.record(rec)
+            if on_record is not None:
+                on_record(rec)
+        step_idx += 1
+        return out
+
+    return wrapped

@@ -388,3 +388,76 @@ def test_serve_engine_launches_kernels(cuda):
     assert RK.launches["rmsnorm"] == (2 * layers + 1) * 6
     assert FK.launches["flash_attention"] == layers
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The Measure stage and the live replan loop on the card.
+# ---------------------------------------------------------------------------
+
+def test_nccl_comm_fit_one_rank(cuda, tmp_path):
+    """One rank's NCCL all-reduce moves no bytes between cards: the fit is
+    dispatch cost.  An NCCL group refuses buffers on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.train import replan
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1)
+    try:
+        m = replan.measure_comm_model(dist.group.WORLD, ("data",),
+                                      (1 << 16, 1 << 20, 1 << 24),
+                                      n_warmup=2, n_iters=5)
+        assert m.a >= 0.0 and m.b >= 0.0 and m.time(1 << 20) > 0.0
+        with pytest.raises(ValueError):
+            replan.measure_comm_model(dist.group.WORLD, ("data",),
+                                      (1 << 16,), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_closed_loop_swap_on_the_card(cuda, tmp_path):
+    """Reduced qwen2-1.5b, seeded with wfbp: the loop swaps to fewer
+    buckets, K1 and K2 launch once per bucket of the plan in force each
+    step, and the parameters stay bit-identical to never-replanned wfbp."""
+    import torch.distributed as dist
+    from repro_torch.core.cost_model import AllReduceModel
+    from repro_torch.train import replan
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils import tree
+    b = registry.reduced_arch("qwen2-1.5b")
+    par = dataclasses.replace(b.parallel, dp_axes=("data",), zero=0,
+                              scan_layers=False, pack_kernel=True,
+                              attn_chunk=32)
+    run = dataclasses.replace(b.run_config("train_4k", par),
+                              shape=ShapeConfig("tiny", "train", 32, 4))
+    prior = AllReduceModel(1e-4, 1e-9)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1)
+    try:
+        step_fn, init_fn, _ = build_train_step(
+            b.model(par), run, strategy="wfbp", comm_model=prior,
+            device=cuda)
+        state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+        pipe = DataPipeline(b.cfg, run.shape, seed=0)
+        for s in range(6):
+            state, _ = step_fn(state, pipe.batch_at(s))
+        want = [p.detach().clone() for p in tree.leaves(state.params)]
+        del state
+        ctl, init_fn, _ = replan.closed_loop(
+            b.model(par), run, strategy="wfbp", comm_model=prior, warmup=1,
+            interval=2, hysteresis=1e-9, device=cuda)
+        state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+        per_step = []
+        for s in range(6):
+            in_force = ctl.plan.num_buckets
+            K.reset_launches()
+            state, metrics = ctl.step_fn(state, pipe.batch_at(s))
+            torch.cuda.synchronize()
+            assert K.launches == {"bucket_pack": in_force,
+                                  "bucket_unpack": in_force}
+            per_step.append(in_force)
+        assert ctl.swaps and len(set(per_step)) > 1
+        assert per_step[-1] < per_step[0]
+        state.grad_sync.check(state.grads)
+        for a, w in zip(tree.leaves(state.params), want):
+            assert torch.equal(_bits(a), _bits(w))
+    finally:
+        dist.destroy_process_group()

@@ -41,7 +41,9 @@ def test_step_imports_without_jax():
             "repro_torch.bridge, repro_torch.serve.engine, "
             "repro_torch.launch.serve, repro_torch.core.comm, "
             "repro_torch.optim.optimizers, repro_torch.train.train_state, "
-            "repro_torch.kernels.bucket_pack.kernel; print('ok')")
+            "repro_torch.kernels.bucket_pack.kernel, "
+            "repro_torch.train.replan, repro_torch.obs.drift, "
+            "repro_torch.obs.timeline; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=120)
